@@ -1,0 +1,5 @@
+from .graph import (bfs_levels, bfs_levels_fused, pagerank, pagerank_fused,
+                    sssp)
+
+__all__ = ["bfs_levels", "bfs_levels_fused", "pagerank", "pagerank_fused",
+           "sssp"]
