@@ -5,24 +5,47 @@
 
 Phases, each printing one line (more for the per-graph phases):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile graphblas_tpu_torch/csrc/spmv.cu with nvcc;
-  3. kernels: every kernel instantiation against its plain torch version
-     on the card, at small random sizes with empty rows and one row of
-     10^5 nonzeros (exact for min/max, 1e-5*max|y| for fp32 plus,
-     1e-12*max|y| for fp64);
-  4. main path at real size through the public API on two graphs —
+  2. build: compile graphblas_tpu_torch/csrc/{spmv,sortreduce}.cu, one
+     nvcc each, started together;
+  3. kernels: every kernel against its plain torch version on the card —
+     the SpMV kernels K1-K4 at small random sizes with empty rows and one
+     row of 10^5 nonzeros (exact for min/max, 1e-5*max|y| for fp32 plus,
+     1e-12*max|y| for fp64), and the sort-reduce kernels K5-K8 on runs of
+     2048 and 8192 slots with many duplicate keys, empty, all-SENTINEL and
+     full runs (keys exact; values exact for int32, bool, min/max and K7,
+     1e-5*max|v| for fp32 plus);
+  4. SpMV main path at real size through the public API on two graphs —
      (a) bench.py's uniform graph (n = 2^20, degree 16, seed 0) and
      (b) bench_real.rmat_edges(20, 16, seed 7), a power-law graph — with
      mxv/vxm (unplanned, planned with mask + accum, min-plus), the fp64
      planned SpMV, CSC conversion, PageRank, BFS and SSSP, each checked
      against scipy/numpy on the host;
-  5. launch counts: every kernel of the path launched during phase 4;
-  6. times: each kernel and its plain version at graphs (a) and (b)
-     (CUDA events, median of 20 after warm-up).
+  5. launch counts: every SpMV kernel launched during phase 4;
+  6. SpMV times: each kernel, its plain version and one torch.sparse CSR
+     product (K1, K2, K4) at graphs (a) and (b) (CUDA events, median of
+     20 after warm-up) beside the bound of its bytes;
+  7. SpGEMM main path through gt.mxm, gt.select and triangle_count, with
+     the sort-reduce launch counts set to 0 before and read after:
+     (a) C = A*A on graph (a) (K5; nnz 268,406,919, 4096 sampled rows
+     exact against scipy, fp64 checksum (S'1).(S1)), triangle_count = 647
+     (K7; also scipy's sum((L L').*L)), the materialised masked count
+     mxm(L, L', PLUS_PAIR, mask=L) (K6) and a complemented-mask product
+     (sampled rows exact); (b) triangle_count(RMAT-18) = 19,595,360;
+     (c) C = A*A and C<A> = A*A with n = 2^23 columns, degree 2 (the wide
+     keys, K8; sampled rows exact); every sort-reduce kernel launched,
+     and the native layout sweep ran (never the Python one);
+  8. sort-reduce times: each of K5-K8 and its plain version on the
+     inputs the main path gave it (its first launch), beside the bound of
+     its bytes;
+  9. wall times of (a) A*A, (a) and (b) triangle_count, cold and warm;
+ 10. where the SpGEMM time goes: one warm A*A (a) and one warm
+     triangle_count (b), with the SELL phases timed on the host, then
+     under torch.profiler (device busy share, device time by operator
+     and by kernel).
 The two lines before the last are the card (nvidia-smi) and one JSON
 object describing the kernels; the last line is the result JSON.  Any
 failure raises and exits non-zero.  Needs one CUDA card; exits non-zero
-without one.
+without one.  ~95 s on one H100 (nvcc ~5 s of it).
 """
 
 import json
@@ -35,18 +58,35 @@ import numpy as np
 FP32_TOL = 1e-5      # fp32 plus: summation order differs
 FP64_TOL = 1e-12
 RELERR_GUARD = 1e-4  # bench.py's SpMV correctness guard
+HBM_BYTES_S = 3.35e12   # H100 SXM device-memory rate (data sheet)
+FP32_OPS_S = 67e12      # H100 SXM fp32 outside the tensor cores
 ADDS = ("plus", "min", "max")
 MULS = ("times", "plus", "first", "second", "pair")
-SOURCE = "graphblas_tpu_torch/csrc/spmv.cu"
-KERNELS = {   # key: (name, TPU kernel replaced)
-    "K2": ("spmv_rowwarp_f32", "graphblas_tpu/kernels/spmv_onehot.py:257"),
-    "K1": ("spmv_planned<float,plus,times>",
+SPMV_SRC = "graphblas_tpu_torch/csrc/spmv.cu"
+SR_SRC = "graphblas_tpu_torch/csrc/sortreduce.cu"
+KERNELS = {   # key: (name, source, TPU kernel replaced)
+    "K1": ("spmv_planned<float,plus,times>", SPMV_SRC,
            "graphblas_tpu/kernels/spmv_route.py:1446"),
+    "K2": ("spmv_rowwarp_f32", SPMV_SRC,
+           "graphblas_tpu/kernels/spmv_onehot.py:257"),
     "K3": ("spmv_planned<float,{min,max,plus}x{times,plus,first,second,"
-           "pair}>", "graphblas_tpu/kernels/spmv_route.py:1767"),
-    "K4": ("spmv_planned<double,plus,times>",
+           "pair}>", SPMV_SRC, "graphblas_tpu/kernels/spmv_route.py:1767"),
+    "K4": ("spmv_planned<double,plus,times>", SPMV_SRC,
            "graphblas_tpu/kernels/spmv_route.py:1581"),
+    "K5": ("sort_reduce_kernel (sort_reduce_rows)", SR_SRC,
+           "graphblas_tpu/kernels/sortreduce.py:252"),
+    "K6": ("sort_reduce_kernel + tokens (sort_reduce_rows_tok)", SR_SRC,
+           "graphblas_tpu/kernels/sortreduce.py:465"),
+    "K7": ("sort_pair1_kernel (sort_reduce_pair1)", SR_SRC,
+           "graphblas_tpu/kernels/sortreduce.py:360"),
+    "K8": ("sort_reduce_kernel + key2 (sort_reduce_rows_wide)", SR_SRC,
+           "graphblas_tpu/kernels/sortreduce.py:435"),
 }
+SR_WRAPPERS = {"K5": "sort_reduce_rows", "K6": "sort_reduce_rows_tok",
+               "K7": "sort_reduce_pair1", "K8": "sort_reduce_rows_wide"}
+UNIFORM_CNNZ = 268_406_919   # the compiled SuiteSparse's answers
+UNIFORM_NTRI = 647           # (BENCH_ALL.json, bench_real.py)
+RMAT18_NTRI = 19_595_360
 
 
 def card_line():
@@ -154,11 +194,11 @@ def phase_kernels(errs):
     return n_cmp, S.shape, int(np.diff(S.indptr).max())
 
 
-def bench_graph():
-    """bench.py's graph: n = 2^20, degree 16, seed 0 (pattern values)."""
+def uniform_graph(n, deg, seed):
+    """bench.py's generator: n vertices, n*deg uniform random edges from
+    default_rng(seed), duplicates merged, pattern values."""
     import scipy.sparse as sps
-    n, deg = 1 << 20, 16
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     rows = rng.integers(0, n, n * deg).astype(np.int32)
     cols = rng.integers(0, n, n * deg).astype(np.int32)
     S = sps.csr_matrix((np.ones(n * deg, np.float32), (rows, cols)),
@@ -166,6 +206,11 @@ def bench_graph():
     S.sum_duplicates()
     S.data[:] = 1.0
     return S
+
+
+def bench_graph():
+    """bench.py's graph: n = 2^20, degree 16, seed 0 (pattern values)."""
+    return uniform_graph(1 << 20, 16, 0)
 
 
 def rmat_graph():
@@ -294,8 +339,23 @@ def main_path(label, S, rng):
     return dict(A=Ao, x=x, p32=p32, p64=p64)
 
 
+def bound(nbytes, ops):
+    """(least ms, what bounds it): bytes at the HBM rate against
+    operations at the fp32 (non-tensor-core) rate."""
+    tb, to = nbytes / HBM_BYTES_S, ops / FP32_OPS_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def spmv_bound(m, n, nnz, vbytes):
+    """y = A x: each input read once (indptr, indices, values, x), y
+    written once; 2 operations per nonzero."""
+    return bound(4 * (m + 1) + nnz * (4 + vbytes) + vbytes * (n + m),
+                 2 * nnz)
+
+
 def phase_times(label, st, card, errs):
-    """Phase 6: each kernel and its plain version at one graph."""
+    """Phase 6: each kernel, its plain version and (K1, K2, K4) one torch
+    sparse CSR product at one graph."""
     import torch
     from graphblas_tpu_torch.kernels import spmv_onehot as OH
     from graphblas_tpu_torch.kernels import spmv_route as SPR
@@ -305,6 +365,9 @@ def phase_times(label, st, card, errs):
     nnz = int(ix.shape[0])
     x = torch.from_numpy(st["x"]).cuda()
     x64 = x.double()
+    csr32 = torch.sparse_csr_tensor(ip.long(), ix.long(), v, A.shape)
+    csr64 = torch.sparse_csr_tensor(ip.long(), ix.long(), v.double(),
+                                    A.shape)
 
     def plain(xx, p, add, mul):
         return SPR._fold_extras(SPR.spmv_planned_plain(xx, p, add, mul), p,
@@ -312,16 +375,20 @@ def phase_times(label, st, card, errs):
 
     runs = {
         "K2": (lambda: OH.spmv(ip, ix, v, x, m),
-               lambda: OH.spmv_plain(ip, ix, v, x, m), "plus", FP32_TOL),
+               lambda: OH.spmv_plain(ip, ix, v, x, m), "plus", FP32_TOL,
+               lambda: csr32 @ x, 4),
         "K1": (lambda: SPR.spmv_route(x, p32),
-               lambda: plain(x, p32, "plus", "times"), "plus", FP32_TOL),
+               lambda: plain(x, p32, "plus", "times"), "plus", FP32_TOL,
+               lambda: csr32 @ x, 4),
         "K3": (lambda: SPR.spmv_route_monoid(x, p32, add="min", mul="plus"),
-               lambda: plain(x, p32, "min", "plus"), "min", FP32_TOL),
+               lambda: plain(x, p32, "min", "plus"), "min", FP32_TOL, None,
+               4),
         "K4": (lambda: SPR.spmv_route_ds(x64, p64),
-               lambda: plain(x64, p64, "plus", "times"), "plus", FP64_TOL),
+               lambda: plain(x64, p64, "plus", "times"), "plus", FP64_TOL,
+               lambda: csr64 @ x64, 8),
     }
     out = {}
-    for key, (kern, ref, add, tol) in runs.items():
+    for key, (kern, ref, add, tol, libf, vb) in runs.items():
         got, want = kern(), ref()
         torch.cuda.synchronize()
         errs[key] = max(errs[key], max_err(got, want, add, tol))
@@ -330,12 +397,367 @@ def phase_times(label, st, card, errs):
         tk1 = time_ms(kern)
         tk2 = time_ms(kern)
         tp2 = time_ms(ref)
-        out[key] = ((tk1 + tk2) / 2, (tp1 + tp2) / 2)
+        tl = time_ms(libf) if libf is not None else None
+        out[key] = ((tk1 + tk2) / 2, (tp1 + tp2) / 2, tl,
+                    *spmv_bound(m, A.ncols, nnz, vb))
     print(f"[6 times {label}] {card} | nnz={nnz} | " + " | ".join(
         f"{KERNELS[k][0]}: {t:.3f} ms ({nnz / t / 1e6:.2f} Gnnz/s), plain "
-        f"{tp:.3f} ms ({nnz / tp / 1e6:.2f} Gnnz/s)"
-        for k, (t, tp) in out.items()), flush=True)
+        f"{tp:.3f} ms, torch.sparse "
+        + ("-" if tl is None else f"{tl:.3f} ms") + f", bound {b:.4f} ms"
+        for k, (t, tp, tl, b, _) in out.items()), flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sort-reduce kernels K5-K8
+# ---------------------------------------------------------------------------
+
+def phase_sr_kernels(errs):
+    """Phase 3b: K5-K8 against their plain versions on the card."""
+    import torch
+    from graphblas_tpu_torch import testing as GT
+    from graphblas_tpu_torch.core import monoid as TM
+    from graphblas_tpu_torch.kernels import sortreduce as SRD
+    rng = np.random.default_rng(12)
+    cu = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    n_cmp = 0
+
+    def check(key, fn, plain, args, kw, exact):
+        nonlocal n_cmp
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        errs[key] = max(errs[key], GT.sr_err(got, plain(*args, **kw),
+                                             exact))
+        n_cmp += 1
+
+    for C in (2048, 8192):
+        keys = GT.sr_runs(rng, C)
+        vals = {k: GT.sr_values(rng, keys.size, k)
+                for k in ("f32", "i32", "bool")}
+        toks = cu(GT.sr_tokens(rng, keys, C))
+        for kind, mon in (("i32", "PLUS"), ("f32", "PLUS"), ("f32", "MIN"),
+                          ("f32", "MAX"), ("bool", "LOR")):
+            args = (cu(keys), cu(vals[kind]), C, getattr(TM, mon))
+            exact = not (kind == "f32" and mon == "PLUS")
+            kw = {"logical": kind == "bool"}
+            check("K5", SRD.sort_reduce_rows, SRD.sort_reduce_rows_plain,
+                  args, kw, exact)
+            for want in (True, False):
+                check("K6", SRD.sort_reduce_rows_tok,
+                      SRD.sort_reduce_rows_tok_plain,
+                      args[:2] + (toks,) + args[2:],
+                      dict(kw, want_token=want), exact)
+        kh, kl, tw = GT.sr_wide_keys(rng, C)
+        tw = cu(tw)
+        for mon, kind in (("PLUS", "f32"), ("MIN", "f32"), ("PLUS", "i32")):
+            for tk, want in ((None, True), (tw, True), (tw, False)):
+                check("K8", SRD.sort_reduce_rows_wide,
+                      SRD.sort_reduce_rows_wide_plain,
+                      (cu(kh), cu(kl), cu(vals[kind]), C, getattr(TM, mon)),
+                      dict(toks=tk, want_token=want),
+                      not (kind == "f32" and mon == "PLUS"))
+        pk = cu(GT.sr_pair1_keys(rng, C))
+        for want in (True, False):
+            check("K7", SRD.sort_reduce_pair1, SRD.sort_reduce_pair1_plain,
+                  (pk, C),
+                  dict(want_token=want), True)
+    return n_cmp
+
+
+class Recorder:
+    """Records the first call of each sort-reduce wrapper during the main
+    path (its inputs are the shapes phase 8 times); the call itself goes
+    to the wrapper, which counts its own launches."""
+
+    def __init__(self):
+        from graphblas_tpu_torch.kernels import sortreduce as SRD
+        self.SRD = SRD
+        self.first = {}
+        self.orig = {}
+
+    def __enter__(self):
+        for key, name in SR_WRAPPERS.items():
+            fn = getattr(self.SRD, name)
+            self.orig[name] = fn
+            setattr(self.SRD, name, self._wrap(key, fn))
+        return self
+
+    def _wrap(self, key, fn):
+        def call(*args, **kw):
+            self.first.setdefault(key, (args, kw))
+            return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.SRD, name, fn)
+
+
+def csr_rows(C, rows):
+    """Rows ``rows`` (sorted) of a port CSR matrix on the card, as scipy."""
+    import scipy.sparse as sps
+    import torch
+    ip = C.indptr.cpu().numpy().astype(np.int64)
+    lo, hi = ip[rows], ip[rows + 1]
+    pos = torch.from_numpy(np.concatenate(
+        [np.arange(a, b) for a, b in zip(lo, hi)])).cuda()
+    return sps.csr_matrix(
+        (C.values[pos].cpu().numpy(), C.indices[pos].cpu().numpy(),
+         np.concatenate([[0], np.cumsum(hi - lo)])),
+        shape=(rows.size, C.ncols))
+
+
+def assert_rows(C, want, rows, what):
+    """Sampled rows of C equal scipy's ``want`` exactly (pattern, order,
+    values)."""
+    got = csr_rows(C, rows)
+    want = want.tocsr()
+    want.eliminate_zeros()
+    want.sort_indices()
+    assert np.array_equal(got.indptr, want.indptr), f"{what}: row counts"
+    assert np.array_equal(got.indices, want.indices), f"{what}: columns"
+    assert np.array_equal(got.data, want.data.astype(got.data.dtype)), \
+        f"{what}: values"
+
+
+def timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def spgemm_path(rng):
+    """Phase 7: the SpGEMM main path at full size; returns (wall times,
+    fallback rows at RMAT-18)."""
+    import scipy.sparse as sps
+    import graphblas_tpu_torch as gt
+    from bench_real import rmat_edges
+    from graphblas_tpu_torch.core import semiring as SR
+    from graphblas_tpu_torch.core import types as T
+    t0 = time.perf_counter()
+    wall = {}
+    # (a) bench.py's uniform graph: C = A*A (K5)
+    S = bench_graph()
+    n = S.shape[0]
+    A = gt.Matrix.from_scipy(S, device="cuda")
+    C, wall["spgemm_a_cold"] = timed(lambda: gt.mxm(A, A, SR.PLUS_TIMES))
+    assert C.nvals == UNIFORM_CNNZ, C.nvals
+    rows = np.sort(rng.choice(n, 4096, replace=False))
+    Sr = S[rows]
+    assert_rows(C, Sr @ S, rows, "A*A")
+    csum = float(C.values.double().sum())
+    ones = np.ones(n)
+    want = float((S.T @ ones).astype(np.float64) @ (S @ ones))
+    assert csum == want, (csum, want)
+    del C
+    C, wall["spgemm_a_warm"] = timed(lambda: gt.mxm(A, A, SR.PLUS_TIMES))
+    assert C.nvals == UNIFORM_CNNZ
+    del C
+    # complemented structural mask: C<!A> = A*A (K6, want_token False)
+    d = gt.Descriptor(mask_structure=True, mask_complement=True)
+    Cc = gt.mxm(A, A, SR.PLUS_TIMES, mask=A, desc=d)
+    full = Sr @ S
+    assert_rows(Cc, full - full.multiply(Sr != 0), rows, "A*A<!A>")
+    del Cc
+    # triangle count (K7) and the materialised masked count (K6)
+    ntri, wall["tc_a_cold"] = timed(lambda: gt.triangle_count(A))
+    assert ntri == UNIFORM_NTRI, ntri
+    ntri, wall["tc_a_warm"] = timed(lambda: gt.triangle_count(A))
+    assert ntri == UNIFORM_NTRI, ntri
+    L = sps.tril(S, -1).tocsr()
+    assert int((L @ L.T).multiply(L).sum()) == UNIFORM_NTRI
+    Lt = gt.select(A, gt.operators.TRIL, -1)
+    LT = Lt.T.to_format(gt.SPARSE, gt.ROW)
+    Cm = gt.mxm(Lt, LT, SR.PLUS_PAIR, mask=Lt,
+                desc=gt.Descriptor(mask_structure=True), out_dtype=T.INT64)
+    assert Cm.dtype == T.INT64 and int(Cm.values.sum()) == UNIFORM_NTRI
+    print(f"[7 spgemm a] n={n} nnz={S.nnz} cnnz={UNIFORM_CNNZ} "
+          f"sampled_rows=4096 exact checksum={csum:.0f} "
+          f"complement=exact ntri={ntri} masked_count="
+          f"{int(Cm.values.sum())} scipy_ntri=match", flush=True)
+    del Cm, Lt, LT, A
+    # (b) RMAT-18 triangle count (hub rows take the classic fallback)
+    ri, ci, n18 = rmat_edges(18, 16, np.random.default_rng(7))
+    S18 = sps.csr_matrix((np.ones(ri.size, np.float32), (ri, ci)),
+                         shape=(n18, n18))
+    S18.sum_duplicates()
+    A18 = gt.Matrix.from_scipy(S18, device="cuda")
+    msgs = []
+    gt.set_option("printf", msgs.append)
+    gt.set_option("burble", True)
+    ntri18, wall["tc_b_cold"] = timed(lambda: gt.triangle_count(A18))
+    gt.set_option("burble", False)
+    fb = [m for m in msgs if "fallback rows" in m]
+    assert ntri18 == RMAT18_NTRI, ntri18
+    ntri18, wall["tc_b_warm"] = timed(lambda: gt.triangle_count(A18))
+    assert ntri18 == RMAT18_NTRI, ntri18
+    print(f"[7 spgemm b] RMAT-18 n={n18} nnz={S18.nnz} ntri={ntri18} | "
+          + "; ".join(fb), flush=True)
+    del A18
+    # (c) wide keys: n = 2^23 columns, degree 2 (K8)
+    Sw = uniform_graph(1 << 23, 2, 0)
+    Aw = gt.Matrix.from_scipy(Sw, device="cuda")
+    rows = np.sort(rng.choice(Sw.shape[0], 4096, replace=False))
+    Swr = Sw[rows]
+    Cw = gt.mxm(Aw, Aw, SR.PLUS_TIMES)
+    assert_rows(Cw, Swr @ Sw, rows, "wide A*A")
+    cw = Cw.nvals
+    del Cw
+    Cwm = gt.mxm(Aw, Aw, SR.PLUS_TIMES, mask=Aw,
+                 desc=gt.Descriptor(mask_structure=True))
+    assert_rows(Cwm, (Swr @ Sw).multiply(Swr != 0), rows, "wide A*A<A>")
+    print(f"[7 spgemm c] wide n={Sw.shape[0]} nnz={Sw.nnz} cnnz={cw} "
+          f"masked_cnnz={Cwm.nvals} sampled_rows=exact "
+          f"wall_s={time.perf_counter() - t0:.1f}", flush=True)
+    return wall
+
+
+SR_BYTES = {"K5": 16, "K6": 20, "K7": 8}   # per slot; K8 below
+
+
+def phase_sr_times(rec, card, errs):
+    """Phase 8: K5-K8 and their plain versions on their first main-path
+    inputs."""
+    import torch
+    from graphblas_tpu_torch import testing as GT
+    from graphblas_tpu_torch.kernels import sortreduce as SRD
+    plains = {"K5": SRD.sort_reduce_rows_plain,
+              "K6": SRD.sort_reduce_rows_tok_plain,
+              "K7": SRD.sort_reduce_pair1_plain,
+              "K8": SRD.sort_reduce_rows_wide_plain}
+    out = {}
+    for key, name in SR_WRAPPERS.items():
+        args, kw = rec.first[key]
+        kern = lambda: getattr(SRD, name)(*args, **kw)  # noqa: E731
+        ref = lambda: plains[key](*args, **kw)  # noqa: E731
+        C = next(a for a in args if isinstance(a, int))
+        vals = None if key == "K7" else args[2 if key == "K8" else 1]
+        exact = vals is None or not (vals.dtype == torch.float32
+                                     and args[-1].op.name == "GrB_PLUS")
+        errs[key] = max(errs[key], GT.sr_err(kern(), ref(), exact))
+        slots = args[0].numel()
+        per = SR_BYTES.get(key) or (28 if kw.get("toks") is not None
+                                    else 24)
+        tp1 = time_ms(ref, reps=5)
+        tk1 = time_ms(kern)
+        tk2 = time_ms(kern)
+        tp2 = time_ms(ref, reps=5)
+        # operations: a comparison sort needs log2(C) per slot, the
+        # reduce one more
+        # (ms, plain ms, library ms: no single torch call, bound, by)
+        out[key] = ((tk1 + tk2) / 2, (tp1 + tp2) / 2, None,
+                    *bound(slots * per, slots * (C.bit_length())))
+        print(f"[8 sort-reduce times] {card} | {key} {KERNELS[key][0]}: "
+              f"{out[key][0]:.3f} ms on {slots} slots (C={C}, "
+              f"{slots / out[key][0] / 1e6:.2f} Gslot/s), plain "
+              f"{out[key][1]:.3f} ms, bound {out[key][3]:.4f} ms "
+              f"({out[key][4]})", flush=True)
+    return out
+
+
+SPGEMM_PHASES = {"spgemm_sell": ("_prep", "_pass1", "_counts", "_pass2"),
+                 "mxm": ("_spgemm_block",)}
+
+
+def _dev_us(e):
+    """A profiler event's own device time in us."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def _on_device(e):
+    """The device's own events (kernels, copies, sets).  Operator events
+    (aten::*) may also carry the device type and report their kernels'
+    time again, so they are left out."""
+    from torch.autograd import DeviceType
+    return e.device_type == DeviceType.CUDA and not e.key.startswith(
+        "aten::")
+
+
+def _busy_s(events):
+    """Seconds in which the device ran anything: the union of its own
+    events' time ranges (overlapping kernels count once)."""
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end)
+                         for e in events):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return busy / 1e6
+
+
+def traced(label, fn, card):
+    """Phase 10: one warm call of ``fn`` with its SpGEMM phases timed on
+    the host (each wrapped in synchronize), then one under torch.profiler:
+    device busy time against wall time, and where the device time goes
+    (by operator and by kernel, each its own time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from graphblas_tpu_torch.ops import mxm as M
+    from graphblas_tpu_torch.ops import spgemm_sell as SGS
+    mods = {"spgemm_sell": SGS, "mxm": M}
+    spent = {}
+    orig = {}
+
+    def wrap(name, f):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    for mod, names in SPGEMM_PHASES.items():
+        for name in names:
+            orig[(mod, name)] = getattr(mods[mod], name)
+            setattr(mods[mod], name, wrap(name, orig[(mod, name)]))
+    _, wall = timed(fn)
+    for (mod, name), f in orig.items():
+        setattr(mods[mod], name, f)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_p = timed(fn)
+    ev = prof.key_averages()
+    kern = sorted((e for e in ev if _on_device(e) and _dev_us(e) > 0),
+                  key=lambda e: -_dev_us(e))
+    busy = _busy_s([e for e in prof.events() if _on_device(e)])
+    assert 0 < busy <= wall_p, (busy, wall_p)
+    ops = sorted((e for e in ev if e.key.startswith("aten::")),
+                 key=lambda e: -_dev_us(e))
+    top_ops = ", ".join(f"{e.key} {_dev_us(e) / 1e3:.1f} ms x{e.count}"
+                        for e in ops[:6])
+    top_k = ", ".join(f"{e.key[:48]} {_dev_us(e) / 1e3:.1f} ms x{e.count}"
+                      for e in kern[:6])
+    print(f"[10 trace {label}] {card} | wall {wall:.3f} s; host-timed "
+          f"phases " + " ".join(f"{k}={v:.3f}s" for k, v in spent.items())
+          + f" | profiled wall {wall_p:.3f} s, device busy {busy:.3f} s "
+          f"(idle {1 - busy / wall_p:.1%}) | device time by operator: "
+          f"{top_ops} | by kernel: {top_k}", flush=True)
+
+
+def phase_trace(card):
+    import graphblas_tpu_torch as gt
+    import scipy.sparse as sps
+    from bench_real import rmat_edges
+    from graphblas_tpu_torch.core import semiring as SR
+    S = bench_graph()
+    A = gt.Matrix.from_scipy(S, device="cuda")
+    gt.mxm(A, A, SR.PLUS_TIMES)                     # warm: prep cached
+    traced("A*A uniform 2^20", lambda: gt.mxm(A, A, SR.PLUS_TIMES), card)
+    del A
+    ri, ci, n18 = rmat_edges(18, 16, np.random.default_rng(7))
+    S18 = sps.csr_matrix((np.ones(ri.size, np.float32), (ri, ci)),
+                         shape=(n18, n18))
+    S18.sum_duplicates()
+    A18 = gt.Matrix.from_scipy(S18, device="cuda")
+    gt.triangle_count(A18)                          # warm: L, L' cached
+    traced("triangle_count RMAT-18", lambda: gt.triangle_count(A18), card)
 
 
 def main():
@@ -351,26 +773,33 @@ def main():
     # 2. build
     from graphblas_tpu_torch.kernels import _cuda
     t0 = time.perf_counter()
-    so = _cuda.build()
-    _cuda.lib()
-    regs = [ln.strip() for ln in _cuda.build_log().splitlines()
-            if "registers" in ln]
-    print(f"[2 build] {time.perf_counter() - t0:.1f} s -> {so.name}; "
+    libs = _cuda.build()
+    for name in libs:
+        _cuda.lib(name)
+    regs = [ln.strip() for name in libs
+            for ln in _cuda.build_log(name).splitlines() if "registers" in ln]
+    print(f"[2 build] {time.perf_counter() - t0:.1f} s -> "
+          f"{', '.join(p.name for p in libs.values())}; "
           f"ptxas: {len(regs)} kernels, "
           f"{max((ln for ln in regs), key=len, default='')}", flush=True)
     # 3. kernels vs plain versions
     errs = {k: 0.0 for k in KERNELS}
     t0 = time.perf_counter()
     n_cmp, shape, max_row = phase_kernels(errs)
-    print(f"[3 kernels] {n_cmp} instantiations match their plain versions "
-          f"(min/max exact, fp32 plus <= {FP32_TOL}*max|y|, fp64 <= "
-          f"{FP64_TOL}*max|y|) at {shape[0]}x{shape[1]}, max row "
-          f"{max_row}; max|err| " + ", ".join(
+    n_sr = phase_sr_kernels(errs)
+    print(f"[3 kernels] {n_cmp} SpMV instantiations match their plain "
+          f"versions (min/max exact, fp32 plus <= {FP32_TOL}*max|y|, fp64 "
+          f"<= {FP64_TOL}*max|y|) at {shape[0]}x{shape[1]}, max row "
+          f"{max_row}; {n_sr} sort-reduce comparisons at C = 2048, 8192 "
+          f"(keys, ints, bool, min/max and K7 exact, fp32 plus <= "
+          f"{FP32_TOL}*max|v|); max|err| " + ", ".join(
               f"{k}={v:.3e}" for k, v in errs.items())
           + f"; {time.perf_counter() - t0:.1f} s", flush=True)
     # 4. main path; 5. launch counts
+    from graphblas_tpu_torch.kernels import sortreduce as SRD
     from graphblas_tpu_torch.kernels import spmv_onehot as OH
     from graphblas_tpu_torch.kernels import spmv_route as SPR
+    from graphblas_tpu_torch.utils import native as NAT
     rng = np.random.default_rng(3)
     graphs = {"a (bench.py uniform 2^20 x16)": bench_graph(),
               "b (RMAT-20 x16)": rmat_graph()}
@@ -388,13 +817,37 @@ def main():
     times = {label: phase_times(label, st, card, errs)
              for label, st in states.items()}
     ta = times[next(iter(times))]
-    # 7. result lines
+    del states, times, graphs
+    # 7. SpGEMM main path, sort-reduce launch counts
+    for k in SRD.launches:
+        SRD.launches[k] = 0
+    for k in NAT.sweeps:
+        NAT.sweeps[k] = 0
+    with Recorder() as rec:
+        wall = spgemm_path(rng)
+    for key, name in SR_WRAPPERS.items():
+        counts[key] = SRD.launches[name]
+    print("[7 launches] " + ", ".join(
+        f"{KERNELS[k][0]}={counts[k]}" for k in SR_WRAPPERS)
+        + f"; layout sweeps {NAT.sweeps}", flush=True)
+    assert all(counts[k] > 0 for k in SR_WRAPPERS), counts
+    assert NAT.sweeps["python"] == 0, NAT.sweeps
+    # 8. sort-reduce times
+    ta.update(phase_sr_times(rec, card, errs))
+    del rec
+    # 9. wall times; 10. where the SpGEMM time goes
+    print(f"[9 wall] {card} | " + " ".join(
+        f"{k}_s={v:.3f}" for k, v in wall.items()), flush=True)
+    phase_trace(card)
+    # result lines
     print(card_line())
     print(json.dumps({"kernels": [
-        {"name": KERNELS[k][0], "route": "cuda", "source": SOURCE,
-         "replaces": KERNELS[k][1], "launches": counts[k],
-         "max_abs_err": errs[k], "ms": ta[k][0], "plain_ms": ta[k][1]}
-        for k in ("K1", "K2", "K3", "K4")]}))
+        {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
+         "replaces": KERNELS[k][2], "launches": counts[k],
+         "max_abs_err": errs[k], "ms": ta[k][0], "plain_ms": ta[k][1],
+         "bound_ms": ta[k][3], "bound_by": ta[k][4],
+         "library_ms": ta[k][2]}
+        for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """Graph algorithms on the op layer (counterpart of
 ``graphblas_tpu.algorithms.graph``; LAGraph-style drivers, BASELINE.json
-configs: BFS lor-land vxm, PageRank plus-times SpMV iteration, SSSP
-min-plus relaxation).
+configs: BFS lor-land vxm, PageRank plus-times SpMV iteration, triangle
+counting by masked SpGEMM, SSSP min-plus relaxation).
 
 Two tiers per algorithm, as in the JAX package:
   * GrB tier — composed from the public ops (vxm/apply/reduce).
@@ -29,6 +29,7 @@ from ..core.descriptor import Descriptor
 from ..core.matrix import BITMAP, COL, ROW, SPARSE, Matrix, Vector
 from ..kernels import segment as K
 from ..kernels import spmv_route as SPRT
+from ..utils.tensor_cache import TensorCache
 
 # pattern-SpMV plans per adjacency structure (values replaced by 1.0 so
 # the plus-times kernel computes the pattern semirings exactly: lor-land
@@ -224,6 +225,43 @@ def pagerank_fused(A: Matrix, damping=0.85, tol=1e-6, max_iter=100,
 
     r0 = torch.full((n,), 1.0 / n, dtype=torch.float32, device=A.device)
     return _pagerank_loop(step, r0, tol, max_iter)
+
+
+# ---------------------------------------------------------------------------
+# Triangle counting
+# ---------------------------------------------------------------------------
+
+_tc_cache = TensorCache(4)
+
+
+def triangle_count(A: Matrix) -> int:
+    """Sandia-style: ntri = sum(C) where C<L> = L*L' with plus_pair and
+    L = tril(A, -1) (BASELINE.json config 3; reference idiom: masked dot3
+    SpGEMM).  Rides the fused mxm + reduce of the SELL engine (the
+    masked PAIR counter, no C materialised) when it applies, else the
+    public mxm + reduce_scalar pair.
+
+    L and L' are cached per input PATTERN while it lives
+    (utils/tensor_cache.py): valid because PLUS_PAIR ignores values."""
+    from .. import api
+    from ..ops.mxm import mxm_reduce_scalar
+    from ..ops.transpose import logical_transpose
+    pattern = [t for t in (A.indptr, A.h, A.indices, A.bitmap)
+               if t is not None]                 # none when A is full
+    flags = (A.fmt, A.orient, tuple(A.shape))
+    ent = _tc_cache.get(pattern, flags) if pattern else None
+    if ent is None:
+        L = api.select(A, OPS.TRIL, -1)
+        ent = (L, logical_transpose(L).to_format(SPARSE, ROW))  # L' too
+        if pattern:
+            _tc_cache.put(pattern, flags, ent)
+    L, LT = ent
+    d = Descriptor(mask_structure=True)
+    acc = mxm_reduce_scalar(L, LT, SR.PLUS_PAIR, mask=L, desc=d)
+    if acc is not None:
+        return int(acc)
+    C = api.mxm(L, LT, SR.PLUS_PAIR, mask=L, desc=d, out_dtype=T.INT64)
+    return int(api.reduce_scalar(C, MON.PLUS, out_dtype=T.INT64))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@
 ``kernels_enabled`` is the counterpart of the JAX package's
 ``pallas_enabled``: with it off every op runs its plain torch version, on
 any device.  ``burble`` replicates the reference's GBURBLE diagnostics:
-every op logs the method it chose.
+every op logs the method it chose.  ``device`` is where constructors put
+their tensors when the caller names no device: the card by default;
+``set_option("device", "cpu")`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import dataclasses
 import os
 import sys
 from typing import Callable
+
+import torch
 
 
 @dataclasses.dataclass
@@ -30,9 +34,23 @@ class _Global:
     format_default: str = "row"
     # hand-written CUDA kernels on/off; off runs the plain torch versions.
     kernels_enabled: bool = True
+    # device of new tensors when a constructor is given none
+    device: str = "cuda"
 
 
 GLOBAL = _Global()
+
+
+def default_device(device=None) -> torch.device:
+    """``device``, or the ``device`` option when it is None.  A CUDA
+    device raises where torch sees no card: nothing lands on the CPU
+    unless the caller asks for it."""
+    dev = torch.device(GLOBAL.device if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "graphblas_tpu_torch: no CUDA card; pass device='cpu' or "
+            "set_option('device', 'cpu') to run on the CPU")
+    return dev
 
 
 def init(mode: str = "nonblocking") -> None:

@@ -8,8 +8,10 @@ Scalar, 8 storage formats = {hypersparse, sparse, bitmap, full} x {by-row
 A Matrix is a dataclass of tensors (indptr/h/indices/values/bitmap) plus
 metadata (shape/format/orientation/iso/type).  Index arrays are int32
 (``INDEX``) so they compare one for one with the JAX package.  Every
-tensor of a matrix lies on its ``device``, which the constructors take
-explicitly (default the CPU); ops run on their operands' device.
+tensor of a matrix lies on its ``device``.  Constructors take ``device=``;
+without it they use the ``device`` option (the card by default, and they
+raise where there is none — see ``config.default_device``).  Ops run on
+their operands' device.
 bitmap/full store values in the logical (nrows, ncols) layout.
 
 Pending tuples and ``wait()`` (non-blocking mode) come with a later part
@@ -41,11 +43,12 @@ COL = "col"   # CSC-like: vectors are columns
 INDEX = torch.int32   # index dtype, as the JAX package's np.int32
 
 
-def _as_tensor(x, dtype=None, device="cpu") -> torch.Tensor:
+def _as_tensor(x, dtype=None, device=None) -> torch.Tensor:
     """numpy/list/tensor -> tensor on ``device`` (tensors keep their own
-    device unless one is given)."""
+    device unless one is given; other arrays go to the default device)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype or x.dtype)
+        return x.to(device=device or x.device, dtype=dtype or x.dtype)
+    device = CFG.default_device(device)
     arr = np.asarray(x)
     t = torch.from_numpy(np.ascontiguousarray(arr)) if arr.dtype.kind in \
         "biufc" else torch.as_tensor(arr)
@@ -85,7 +88,8 @@ class Matrix:
         if self.device is None:
             held = [t for t in (self.values, self.indptr, self.bitmap)
                     if t is not None]
-            self.device = held[0].device if held else torch.device("cpu")
+            self.device = held[0].device if held \
+                else CFG.default_device()
         self.device = torch.device(self.device)
         if self.fmt in (SPARSE, HYPER) and self.indptr is None:
             # empty matrix
@@ -131,8 +135,9 @@ class Matrix:
 
     @classmethod
     def new(cls, dtype, nrows, ncols, fmt=SPARSE, orient=None,
-            device="cpu"):
+            device=None):
         """GrB_Matrix_new: empty matrix on ``device``."""
+        device = CFG.default_device(device)
         if fmt in (BITMAP, FULL):
             ty = T.lookup(dtype)
             vals = torch.zeros((nrows, ncols), dtype=ty.torch_dtype,
@@ -145,7 +150,7 @@ class Matrix:
 
     @classmethod
     def from_coo(cls, rows, cols, vals, shape, dtype=None, dup="plus",
-                 orient=None, iso=False, device="cpu"):
+                 orient=None, iso=False, device=None):
         """GrB_Matrix_build (reference: Source/GB_builder.c); see
         ops/build.py."""
         from ..ops import build as _build
@@ -156,7 +161,7 @@ class Matrix:
     def from_dense(cls, arr, orient=None, device=None):
         """Full matrix from a dense array (all entries present).  A tensor
         stays on its device unless ``device`` is given; other arrays go to
-        ``device`` (default the CPU)."""
+        ``device`` (default ``config.default_device()``)."""
         arr = _as_tensor(arr, device=device or _dev_of(arr))
         if arr.dim() != 2:
             raise E.InvalidValue("from_dense: need a 2-D array")
@@ -173,9 +178,10 @@ class Matrix:
                    values=arr, bitmap=present)
 
     @classmethod
-    def from_scipy(cls, sp, orient=None, dtype=None, device="cpu"):
+    def from_scipy(cls, sp, orient=None, dtype=None, device=None):
         """Construct from a scipy.sparse matrix on ``device``."""
         import scipy.sparse as sps
+        device = CFG.default_device(device)
         orient = orient or CFG.GLOBAL.format_default
         want = sps.csr_matrix if orient == ROW else sps.csc_matrix
         m = want(sp)
@@ -400,7 +406,8 @@ class Matrix:
 
 
 def _dev_of(x):
-    return x.device if isinstance(x, torch.Tensor) else "cpu"
+    return x.device if isinstance(x, torch.Tensor) \
+        else CFG.default_device()
 
 
 @dataclasses.dataclass(eq=False, repr=False, init=False)
@@ -423,7 +430,8 @@ class Vector(Matrix):
         return self.shape[0]
 
     @classmethod
-    def new(cls, dtype, n, fmt=SPARSE, orient=None, device="cpu"):
+    def new(cls, dtype, n, fmt=SPARSE, orient=None, device=None):
+        device = CFG.default_device(device)
         if fmt in (BITMAP, FULL):
             ty = T.lookup(dtype)
             vals = torch.zeros((n, 1), dtype=ty.torch_dtype, device=device)
@@ -434,7 +442,7 @@ class Vector(Matrix):
 
     @classmethod
     def from_coo(cls, idx, vals, n, dtype=None, dup="plus", iso=False,
-                 device="cpu"):
+                 device=None):
         from ..ops import build as _build
         idx = np.atleast_1d(np.asarray(idx))
         return _build.build_matrix(cls, idx, np.zeros_like(idx), vals,
@@ -471,7 +479,7 @@ class Scalar(Matrix):
         Matrix.__init__(self, (1, 1), dtype, fmt, COL, **kw)
 
     @classmethod
-    def from_value(cls, value, dtype=None, device="cpu"):
+    def from_value(cls, value, dtype=None, device=None):
         from ..ops import build as _build
         return _build.build_matrix(cls, [0], [0], [value], (1, 1), dtype,
                                    "second", COL, False, device)

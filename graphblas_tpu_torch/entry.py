@@ -3,7 +3,8 @@ step (plus-times SpMV + teleport) over a CSR graph, the BASELINE.json
 config-2 kernel.
 
 ``entry(device)`` returns ``(pagerank_step, (r0, srcs, segs, outdeg))``
-with the same arrays as the JAX entry point, as tensors on ``device``.
+with the same arrays as the JAX entry point, as tensors on ``device``
+(default the card; see ``config.default_device``).
 """
 
 from __future__ import annotations
@@ -24,10 +25,12 @@ def _small_graph(n=512, deg=8, seed=0):
     return S
 
 
-def entry(device="cpu"):
+def entry(device=None):
     from . import COL, ROW, SPARSE, Matrix
+    from .core.config import default_device
     from .kernels import segment as K
 
+    device = default_device(device)
     S = _small_graph()
     A = Matrix.from_scipy(S.astype(np.float32), device=device)
     At = A.to_format(SPARSE, COL)  # CSC == A' in CSR

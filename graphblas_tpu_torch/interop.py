@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core import config as CFG
 from .core import types as T
 from .core.convert import _reclass
 from .core.matrix import Matrix, Vector
@@ -29,21 +30,23 @@ def _t(a, device, dtype=None):
 
 
 def matrix_from_arrays(shape, dtype_name, fmt, orient, indptr, h, indices,
-                       values, bitmap, iso, device="cpu") -> Matrix:
+                       values, bitmap, iso, device=None) -> Matrix:
     """A port Matrix from a JAX Matrix's fields: ``dtype_name`` is its
-    ``dtype.name`` (e.g. "GrB_FP32"), index arrays become int32."""
+    ``dtype.name`` (e.g. "GrB_FP32"), index arrays become int32.
+    ``device`` defaults to ``config.default_device()``."""
     ty = T.lookup(dtype_name)
+    device = CFG.default_device(device)
     return Matrix(tuple(shape), ty, fmt, orient, iso=bool(iso),
                   indptr=_t(indptr, device, np.int32),
                   h=_t(h, device, np.int32),
                   indices=_t(indices, device, np.int32),
                   values=_t(values, device, ty.np_dtype),
                   bitmap=_t(bitmap, device, np.bool_),
-                  device=torch.device(device))
+                  device=device)
 
 
 def vector_from_arrays(n, dtype_name, fmt, indptr, h, indices, values,
-                       bitmap, iso, device="cpu") -> Vector:
+                       bitmap, iso, device=None) -> Vector:
     """A port Vector from a JAX Vector's fields (an n-by-1 matrix stored
     by column)."""
     return _reclass(matrix_from_arrays((n, 1), dtype_name, fmt, "col",

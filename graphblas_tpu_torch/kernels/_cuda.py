@@ -1,12 +1,13 @@
-"""Build, load and call the CUDA kernels of ``csrc/spmv.cu``.
+"""Build, load and call the CUDA kernels of ``csrc/*.cu``.
 
-The source is compiled at first use with ``nvcc`` into a shared library
-with a plain C interface, keyed by a hash of the source and the flags,
-under ``build/graphblas_tpu_torch/`` at the root of the checkout, and
-loaded with ctypes.  (PyTorch's own extension builder would include its
-headers and take minutes per build.)  Nothing here runs at import time:
-the CPU tests import this module on machines with no compiler and no
-card.  A build failure raises; there is no fallback.
+Each source (``SOURCES``) is compiled at first use with ``nvcc`` into its
+own shared library with a plain C interface, keyed by a hash of the
+source and the flags, under ``build/graphblas_tpu_torch/`` at the root of
+the checkout, and loaded with ctypes.  (``torch.utils.cpp_extension``
+would include PyTorch's headers and take minutes per build.)  ``build()``
+starts one ``nvcc`` per missing library, all at once.  Nothing here runs
+at import time: the CPU tests import this module on machines with no
+compiler and no card.  A build failure raises; there is no fallback.
 
 Each call launches on ``torch.cuda.current_stream()``, checks the
 launcher's ``cudaGetLastError()`` and raises if it is not 0.
@@ -23,13 +24,14 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "spmv.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"spmv": CSRC / "spmv.cu", "sortreduce": CSRC / "sortreduce.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "graphblas_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lib = None
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -41,59 +43,89 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build graphblas_tpu_torch/csrc/spmv.cu")
+                           "build graphblas_tpu_torch/csrc/*.cu")
     return found
 
 
-def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()
+def library_path(name: str) -> Path:
+    tag = hashlib.sha256(SOURCES[name].read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libgb_spmv_{tag}.so"
+    return BUILD_DIR / f"libgb_{name}_{tag}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless this source's library exists; returns
-    its path.  The compiler's resource report (``-Xptxas -v``) is kept in
-    ``<library>.log``."""
-    out = library_path()
-    if out.exists():
+def build(names=None) -> dict:
+    """Compile the named sources (default all) whose library does not
+    exist yet, one ``nvcc`` each, all started together; returns
+    {name: library path}.  Each compiler's resource report (``-Xptxas
+    -v``) is kept in ``<library>.log``."""
+    names = list(SOURCES) if names is None else list(names)
+    out = {n: library_path(n) for n in names}
+    todo = [n for n in names if not out[n].exists()]
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = out[n].with_name(f"{out[n].name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+        procs[n] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for n, (cmd, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n"
+                          f"{log}")
+            continue
+        out[n].with_name(out[n].name + ".log").write_text(log)
+        os.replace(tmp, out[n])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out
 
 
-def build_log() -> str:
-    log = library_path().with_name(library_path().name + ".log")
+def build_log(name: str) -> str:
+    log = library_path(name).with_name(library_path(name).name + ".log")
     return log.read_text() if log.exists() else ""
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        so = ctypes.CDLL(str(build()))
-        P, I = ctypes.c_void_p, ctypes.c_int64
-        so.gb_spmv_rowwarp_f32.argtypes = [P, P, P, P, P, I, I, P]
-        so.gb_spmv_rowwarp_f32.restype = ctypes.c_int
-        so.gb_spmv_planned.argtypes = [I, I, I, P, P, P, I, P, P, P, P, P]
-        so.gb_spmv_planned.restype = ctypes.c_int
+def _bind_spmv(so) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int64
+    so.gb_spmv_rowwarp_f32.argtypes = [P, P, P, P, P, I, I, P]
+    so.gb_spmv_rowwarp_f32.restype = ctypes.c_int
+    so.gb_spmv_planned.argtypes = [I, I, I, P, P, P, I, P, P, P, P, P]
+    so.gb_spmv_planned.restype = ctypes.c_int
+
+
+def _bind_sortreduce(so) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int64
+    so.gb_sort_reduce.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, P]
+    so.gb_sort_reduce.restype = ctypes.c_int
+    so.gb_sort_pair1.argtypes = [P, P, I, I, I, P]
+    so.gb_sort_pair1.restype = ctypes.c_int
+
+
+_BIND = {"spmv": _bind_spmv, "sortreduce": _bind_sortreduce}
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of one source (built on first use).  Each
+    library exports its own ``gb_error_string``."""
+    so = _libs.get(name)
+    if so is None:
+        so = ctypes.CDLL(str(build([name])[name]))
+        _BIND[name](so)
         so.gb_error_string.argtypes = [ctypes.c_int]
         so.gb_error_string.restype = ctypes.c_char_p
-        _lib = so
-    return _lib
+        _libs[name] = so
+    return so
 
 
-def _check(err: int, name: str) -> None:
+def _check(err: int, name: str, source: str = "spmv") -> None:
     if err != 0:
-        msg = lib().gb_error_string(err).decode()
+        msg = lib(source).gb_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")
 
 
@@ -120,7 +152,7 @@ def spmv_rowwarp_f32(indptr, indices, values, x, y, m: int) -> None:
     sms = torch.cuda.get_device_properties(y.device).multi_processor_count
     grid = min(-(-m // 8), sms * 32)      # 8 warps a block, grid-strided
     with torch.cuda.device(y.device):
-        err = lib().gb_spmv_rowwarp_f32(
+        err = lib("spmv").gb_spmv_rowwarp_f32(
             indptr.data_ptr(), indices.data_ptr(), values.data_ptr(),
             x.data_ptr(), y.data_ptr(), m, grid, _stream(y.device))
     _check(err, "spmv_rowwarp_f32")
@@ -136,9 +168,42 @@ def spmv_planned(sub_start, sub_end, block_ptr, indices, values, x, y_sub,
     """y_sub = A (add.mul) x over a plan's sub-rows, on one card."""
     nblocks = block_ptr.numel() - 1
     with torch.cuda.device(y_sub.device):
-        err = lib().gb_spmv_planned(
+        err = lib("spmv").gb_spmv_planned(
             _DTYPE_CODES[values.dtype], ADD_CODES[add], MUL_CODES[mul],
             sub_start.data_ptr(), sub_end.data_ptr(), block_ptr.data_ptr(),
             nblocks, indices.data_ptr(), values.data_ptr(), x.data_ptr(),
             y_sub.data_ptr(), _stream(y_sub.device))
     _check(err, f"spmv_planned<{values.dtype}, {add}, {mul}>")
+
+
+# sortreduce.cu: value plane codes and monoid op codes (see the source)
+SR_VDTYPE = {torch.int32: 0, torch.float32: 1}
+SR_OPS = {"plus": 0, "times": 1, "min": 2, "max": 3, "lor": 4, "land": 5,
+          "lxor": 6, "eq": 7}
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def sort_reduce(keys, keys2, vals, toks, okeys, okeys2, ovals, C: int,
+                op: str, want_token: bool) -> None:
+    """K5/K6/K8 over ``keys.numel() // C`` runs of C slots, on one card."""
+    dev = keys.device
+    with torch.cuda.device(dev):
+        err = lib("sortreduce").gb_sort_reduce(
+            SR_VDTYPE[vals.dtype], SR_OPS[op], keys.data_ptr(), _ptr(keys2),
+            vals.data_ptr(), _ptr(toks), okeys.data_ptr(), _ptr(okeys2),
+            ovals.data_ptr(), keys.numel() // C, C, int(bool(want_token)),
+            _stream(dev))
+    _check(err, f"sort_reduce<{vals.dtype}, {op}, C={C}>", "sortreduce")
+
+
+def sort_pair1(keys, out, C: int, want_token: bool) -> None:
+    """K7 over ``keys.numel() // C`` runs of C slots, on one card."""
+    dev = keys.device
+    with torch.cuda.device(dev):
+        err = lib("sortreduce").gb_sort_pair1(
+            keys.data_ptr(), out.data_ptr(), keys.numel() // C, C,
+            int(bool(want_token)), _stream(dev))
+    _check(err, f"sort_pair1<C={C}>", "sortreduce")

@@ -57,8 +57,13 @@ def _dedup(sorted_vals, gid, ng: int, dup: BinaryOp, is_first, is_last):
 
 
 def build_matrix(cls, rows, cols, vals, shape, dtype, dup, orient, iso,
-                 device="cpu"):
+                 device=None):
+    """``device``: where the result lives; None keeps the device of the
+    first tensor among rows/cols/vals, else the default device."""
     orient = orient or CFG.GLOBAL.format_default
+    if device is None:
+        held = [t for t in (rows, cols, vals) if isinstance(t, torch.Tensor)]
+        device = held[0].device if held else CFG.default_device()
     nrows, ncols = int(shape[0]), int(shape[1])
     dup = _resolve_dup(dup)
     rows_t = _as_tensor(rows, dtype=torch.int64, device=device).reshape(-1)

@@ -16,16 +16,22 @@ formats:
                         unplanned otherwise); min/max semirings ride the
                         planned kernel when a plan is cached; everything
                         else is a row-gather + segmented reduce in torch
-  - sparse x sparse  -> ESC SpGEMM, not yet ported (raises)
+  - sparse x sparse  -> ESC SpGEMM (expand-sort-compress): the SELL
+                        engine (ops/spgemm_sell.py, sort-reduce kernels
+                        K5-K8) when the semiring and type have a kernel,
+                        else the classic path (int64 key sort + segmented
+                        reduce, tiled by row blocks)
 
 The kernel tier is chosen by a predicate only — ``kernels_enabled``, the
-dtype, and whether a plan is cached — and the kernel wrappers themselves
-launch on CUDA tensors and run their plain versions on CPU tensors.
-accum/mask/replace all land in ops/masker.writeback.
+dtype, the monoid, and whether a plan is cached — and the kernel wrappers
+themselves launch on CUDA tensors and run their plain versions on CPU
+tensors.  accum/mask/replace all land in ops/masker.writeback; a sparse
+mask that SpGEMM already applied is transplanted (``_mask_done``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import config as CFG
@@ -33,13 +39,13 @@ from ..core import errors as E
 from ..core import types as T
 from ..core.convert import _clone
 from ..core.descriptor import NULL, Descriptor
-from ..core.matrix import (BITMAP, COL, FULL, HYPER, ROW, SPARSE, Matrix,
-                           Vector)
+from ..core.matrix import (BITMAP, COL, FULL, HYPER, INDEX, ROW, SPARSE,
+                           Matrix, Vector)
 from ..core.semiring import Semiring
 from ..core.types import cast
 from ..kernels import segment as K
 from ..kernels import spmv_onehot, spmv_route
-from .masker import writeback
+from .masker import mask_bits_at_keys, writeback
 from .transpose import logical_transpose, maybe_transpose
 
 _MATMUL_ADD = {"GrB_PLUS"}  # monoids whose dense path can ride matmul
@@ -82,6 +88,27 @@ def _flip(sr: Semiring) -> Semiring:
 # public entry points
 # ---------------------------------------------------------------------------
 
+def _mask_done(Tm, mask, C, accum):
+    """True when SpGEMM already applied the write mask exactly and the
+    writeback can transplant (reference: dot3's C pattern is the mask
+    pattern, Source/GB_mxm.c:180-199): no accum and no prior C content."""
+    if mask is None or not getattr(Tm, "_mask_applied", False):
+        return False
+    if accum is not None:
+        return False
+    return C is None or (C.fmt in (SPARSE, HYPER) and C.nvals == 0)
+
+
+def _writeback(C, mask, accum, Tm, desc, out_dtype, out_class=None):
+    if _mask_done(Tm, mask, C, accum):
+        CFG.burble("mxm: mask applied in-kernel, transplant writeback")
+        return writeback(C, None, accum, Tm,
+                         desc.with_(mask_complement=False), out_dtype,
+                         out_class=out_class)
+    return writeback(C, mask, accum, Tm, desc, out_dtype,
+                     out_class=out_class)
+
+
 def mxm(A: Matrix, B: Matrix, sr: Semiring, *, C=None, mask=None,
         accum=None, desc: Descriptor = NULL, out_dtype=None):
     A = maybe_transpose(A, desc.transpose0)
@@ -92,7 +119,7 @@ def mxm(A: Matrix, B: Matrix, sr: Semiring, *, C=None, mask=None,
         raise E.DimensionMismatch("mxm: C shape")
     zt = _ztype(sr, A, B, None)
     Tm = _mxm_dispatch(A, B, sr, zt, mask, desc, accum)
-    return writeback(C, mask, accum, Tm, desc, out_dtype)
+    return _writeback(C, mask, accum, Tm, desc, out_dtype)
 
 
 def mxv(A: Matrix, u: Matrix, sr: Semiring, *, C=None, mask=None,
@@ -103,8 +130,8 @@ def mxv(A: Matrix, u: Matrix, sr: Semiring, *, C=None, mask=None,
         raise E.DimensionMismatch(f"mxv: {A.shape} x {u.shape}")
     zt = _ztype(sr, A, u, None)
     Tm = _mxm_dispatch(A, u, sr, zt, mask, desc, accum)
-    return writeback(C, mask, accum, Tm, desc.with_(transpose0=False),
-                     out_dtype, out_class=Vector)
+    return _writeback(C, mask, accum, Tm, desc.with_(transpose0=False),
+                      out_dtype, out_class=Vector)
 
 
 def vxm(u: Matrix, A: Matrix, sr: Semiring, *, C=None, mask=None,
@@ -129,7 +156,13 @@ def vxm(u: Matrix, A: Matrix, sr: Semiring, *, C=None, mask=None,
             CFG.burble("vxm: spmspv dense-accumulator path")
             return writeback(C, mask, accum, Tv, d2, out_dtype,
                              out_class=Vector)
-        raise NotImplementedError("SpGEMM: see ROADMAP")
+        # u is n-by-1 stored by column, so its logical transpose is
+        # already the 1-by-n CSR row: a 1-row SpGEMM over A's rows
+        ut = logical_transpose(u.to_format(SPARSE, COL))
+        CFG.burble("vxm: spmspv path (1-row spgemm, no transpose)")
+        Tv = logical_transpose(_spgemm_esc(ut, A, sr, zt, None, d2, accum))
+        return writeback(C, mask, accum, Tv, d2, out_dtype,
+                         out_class=Vector)
     At = logical_transpose(A)
     if sr.mult.positional:
         sr2 = sr
@@ -138,7 +171,7 @@ def vxm(u: Matrix, A: Matrix, sr: Semiring, *, C=None, mask=None,
         sr2 = _flip(sr)
         relabel = _ident_relabel
     Tm = _mxm_dispatch(At, u, sr2, zt, mask, desc, accum, relabel)
-    return writeback(C, mask, accum, Tm, d2, out_dtype, out_class=Vector)
+    return _writeback(C, mask, accum, Tm, d2, out_dtype, out_class=Vector)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +295,8 @@ def _mxm_dispatch(A, B, sr, zt, mask, desc, accum,
         Ct = _spmm(logical_transpose(B), logical_transpose(A), sr2, zt,
                    rel2)
         return logical_transpose(Ct)
-    raise NotImplementedError("SpGEMM: see ROADMAP")
+    CFG.burble("mxm: ESC spgemm path")
+    return _spgemm_esc(A, B, sr, zt, mask, desc, accum, relabel)
 
 
 # ---------------------------------------------------------------------------
@@ -475,3 +509,194 @@ def spmv_arrays(indptr, indices, values, x, m: int) -> torch.Tensor:
     CFG.burble("spmv: tier=torch")
     return spmv_onehot.spmv_plain(indptr, indices, values,
                                   x.to(values.dtype), m)
+
+
+# ---------------------------------------------------------------------------
+# sparse x sparse: ESC SpGEMM (saxpy3 analog)
+# ---------------------------------------------------------------------------
+
+SPGEMM_FLOP_BLOCK = 1 << 24   # peak expanded products per row block
+
+
+def _flop_count(a_cols, b_indptr):
+    """Cumulative products per A entry: cumf[e] = sum over entries before
+    e of |B(k,:)| (reference: GB_AxB_saxpy3_flopcount.c)."""
+    blen = torch.diff(b_indptr.long())
+    out = torch.zeros(a_cols.numel() + 1, dtype=torch.int64,
+                      device=a_cols.device)
+    torch.cumsum(blen[a_cols.long()], 0, out=out[1:])
+    return out
+
+
+def _spgemm_esc(A, B, sr, zt, mask, desc, accum,
+                relabel=_ident_relabel) -> Matrix:
+    """Marks results of sparse/hyper-masked runs: every internal path
+    (SELL in-sort tokens, classic prefilter) applies such masks exactly,
+    so mxm/mxv/vxm transplant instead of re-masking in writeback."""
+    out = _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum, relabel)
+    if mask is not None and mask.fmt in (SPARSE, HYPER):
+        out._mask_applied = True
+    return out
+
+
+def mxm_reduce_scalar(A, B, sr: Semiring, *, mask=None,
+                      desc: Descriptor = NULL):
+    """Fused ``reduce(C<M> = A (+).(x) B)`` under a PLUS monoid: the SELL
+    engine reduces each block's kept outputs without materialising C
+    (reference analog: LAGraph triangle count = dot3 mxm + GrB_reduce).
+    Returns an int64 device scalar, or None when the fused path does not
+    apply (the caller runs mxm + reduce)."""
+    A2 = maybe_transpose(A, desc.transpose0)
+    B2 = maybe_transpose(B, desc.transpose1)
+    if A2.ncols != B2.nrows:
+        raise E.DimensionMismatch(f"mxm: {A2.shape} x {B2.shape}")
+    zt = _ztype(sr, A2, B2, None)
+    # PAIR: run sums are exact small counts in any type
+    int_exact = zt.is_integer or sr.mult.name == "GrB_ONEB"
+    if (sr.add.op.name != "GrB_PLUS" or zt.is_bool or zt.is_complex
+            or _dense(A2) or _dense(B2) or not int_exact):
+        return None
+    d2 = desc.with_(transpose0=False, transpose1=False)
+    out = _spgemm_esc_impl(A2, B2, sr, zt, mask, d2, None,
+                           reduce_scalar=True)
+    return None if out is None or isinstance(out, Matrix) else out
+
+
+def _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum,
+                     relabel=_ident_relabel, reduce_scalar=False):
+    """Expand-sort-compress SpGEMM.
+
+    Phase 0 (flop count, one host sync): F = sum over A entries of
+    |B(k,:)|.  Tier choice by predicate: the SELL engine
+    (ops/spgemm_sell.py) when the semiring, type and monoid have a
+    sort-reduce kernel, else the classic path here, whose row blocks of
+    at most SPGEMM_FLOP_BLOCK products keep peak memory O(block): expand
+    products (searchsorted on the cumulative flop array), prefilter by a
+    sparse mask (the dot3 analog), sort the int64 (i, j) keys and reduce
+    each group under the add monoid."""
+    from . import spgemm_sell as SGS
+    Ar = A.to_format(SPARSE, ROW)
+    Br = B.to_format(SPARSE, ROW)
+    m = A.nrows
+    n = B.ncols
+    dev = A.device
+    nnzA = int(Ar.indices.shape[0])
+    if nnzA == 0 or int(Br.indices.shape[0]) == 0:
+        return None if reduce_scalar else \
+            Matrix((m, n), zt, SPARSE, ROW, device=dev)
+    cumf = _flop_count(Ar.indices, Br.indptr)
+    F = int(cumf[-1])
+    CFG.burble("spgemm: %d flops (nnzA=%d nnzB=%d)", F, nnzA,
+               int(Br.indices.shape[0]))
+    if F == 0:
+        return None if reduce_scalar else \
+            Matrix((m, n), zt, SPARSE, ROW, device=dev)
+    a_rows = K.expand_rowids(Ar.indptr, nnzA, m).long()
+    row_cum = cumf[Ar.indptr.long()]         # products before each row
+
+    def classic_rows(rows):
+        """Over-cap rows (ascending host ids) through the classic path,
+        in row blocks of at most SPGEMM_FLOP_BLOCK products.  Returns
+        (counts, uvec, uidx, cv)."""
+        rows_d = torch.from_numpy(rows).to(dev)
+        lo = row_cum[rows_d]
+        cnt = row_cum[rows_d + 1] - lo
+        cut = _row_blocks(cnt.cpu().numpy())
+        parts = []
+        for b0, b1 in zip(cut[:-1], cut[1:]):
+            p = spmv_route._repeat_arange(lo[b0:b1], cnt[b0:b1])
+            keys, prod = _spgemm_expand_at(Ar, Br, a_rows, cumf, p, sr,
+                                           zt, n, relabel)
+            parts.append(_spgemm_block(keys, prod, mask, desc, sr, n))
+        uvec, uidx, cv = (torch.cat(q) for q in zip(*parts))
+        counts = torch.zeros(rows.size, dtype=torch.int64, device=dev)
+        counts.index_add_(0, torch.searchsorted(rows_d, uvec.long()),
+                          torch.ones_like(uvec, dtype=torch.int64))
+        return counts, uvec.long(), uidx, cv
+
+    why = SGS.ineligible(sr, zt, n)
+    if why is None:
+        ip_h = Ar.indptr.cpu().numpy().astype(np.int64)
+        T_ = SGS.spgemm_sell(Ar, Br, ip_h, sr, zt, m, n, mask, desc,
+                             classic_rows, reduce_scalar=reduce_scalar)
+        if T_ is not None:
+            return T_
+        why = "slot domain"
+    CFG.burble("spgemm: classic ESC (SELL declined: %s)", why)
+    if reduce_scalar:
+        return None          # no fused path; the caller runs mxm + reduce
+    row_cum_h = row_cum.cpu().numpy()
+    cut = _row_blocks(np.diff(row_cum_h))
+    CFG.burble("spgemm: %d row blocks", len(cut) - 1)
+    parts = []
+    for r0, r1 in zip(cut[:-1], cut[1:]):
+        f0, f1 = int(row_cum_h[r0]), int(row_cum_h[r1])
+        if f1 > f0:
+            keys, prod = _spgemm_expand(Ar, Br, a_rows, cumf, f0, f1 - f0,
+                                        sr, zt, n, relabel)
+            parts.append(_spgemm_block(keys, prod, mask, desc, sr, n))
+    uvec, uidx, cv = (torch.cat(q) for q in zip(*parts))
+    indptr = K.indptr_from_sorted(uvec, m, INDEX)
+    return Matrix((m, n), zt, SPARSE, ROW, indptr=indptr, indices=uidx,
+                  values=cv)
+
+
+def _row_blocks(cnt):
+    """Cut rows (host product counts) into consecutive blocks of at most
+    SPGEMM_FLOP_BLOCK products; a larger row stays alone (splitting one
+    row would break its dedup).  Returns the cut points."""
+    cum = np.concatenate([[0], np.cumsum(cnt)])
+    cut = [0]
+    while cut[-1] < cnt.size:
+        r0 = cut[-1]
+        r1 = int(np.searchsorted(cum, cum[r0] + SPGEMM_FLOP_BLOCK,
+                                 side="right")) - 1
+        cut.append(max(r1, r0 + 1))
+    return cut
+
+
+def _spgemm_block(keys, prod, mask, desc, sr, n: int):
+    """One ESC pass over a block of expanded products: sparse-mask
+    prefilter, int64 key sort, segmented reduce under the add monoid;
+    returns (row ids, column ids, values) in CSR order."""
+    if mask is not None and mask.fmt in (SPARSE, HYPER):
+        eff = mask_bits_at_keys(mask, keys, n, ROW, desc)
+        kept, (keys, prod) = K.compact(eff, keys, prod)
+        CFG.burble("spgemm: mask prefilter -> %d products", kept)
+    skeys, order = torch.sort(keys)
+    gid, ng = K.group_ids(skeys)
+    cv = K.segment_reduce(prod[order], gid, ng, sr.add)
+    ukeys = torch.zeros(ng, dtype=skeys.dtype, device=skeys.device)
+    ukeys[gid] = skeys
+    uvec, uidx = K.key_split(ukeys, n)
+    return uvec, uidx, cv
+
+
+def _spgemm_expand(Ar, Br, a_rows, cumf, f0: int, F: int, sr, zt, n: int,
+                   relabel=_ident_relabel):
+    """Expansion of the F consecutive products from global index f0."""
+    p = torch.arange(f0, f0 + F, dtype=torch.int64, device=cumf.device)
+    return _spgemm_expand_at(Ar, Br, a_rows, cumf, p, sr, zt, n, relabel)
+
+
+def _spgemm_expand_at(Ar, Br, a_rows, cumf, p, sr, zt, n: int,
+                      relabel=_ident_relabel):
+    """Expansion of global product indices ``p`` (ascending): the A entry
+    e of each product by searchsorted on cumf, its B position, and the
+    int64 key i * n + j with the product value."""
+    mult = sr.mult
+    nnzA = Ar.indices.shape[0]
+    e = torch.searchsorted(cumf[1:], p, right=True).clamp(max=nnzA - 1)
+    off = (p - cumf[e]).clamp(min=0)
+    ka = Ar.indices.long()[e]
+    b_pos = (Br.indptr.long()[ka] + off).clamp(max=Br.indices.shape[0] - 1)
+    i = a_rows[e]
+    j = Br.indices.long()[b_pos]
+    keys = i * n + j
+    if mult.positional:
+        ri, rk, rj = relabel(i, ka, j)
+        prod = _positional_product_vals(mult.positional, ri, rk, rj, zt)
+    else:
+        prod = cast(mult.fn(Ar._vals_expanded()[e],
+                            Br._vals_expanded()[b_pos]), zt)
+    return keys, prod

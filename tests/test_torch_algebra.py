@@ -20,6 +20,7 @@ from graphblas_tpu_torch.core import ops as TO
 from graphblas_tpu_torch.core import semiring as TS
 from graphblas_tpu_torch.core import types as TT
 from graphblas_tpu_torch.kernels import segment as TK
+from torch_parity import cpu_default  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -185,7 +186,13 @@ def test_import_brings_no_jax():
     was not loaded before the import."""
     code = ("import sys; before = set(sys.modules); "
             "import graphblas_tpu_torch, graphblas_tpu_torch.algorithms, "
-            "graphblas_tpu_torch.entry, graphblas_tpu_torch.interop; "
+            "graphblas_tpu_torch.entry, graphblas_tpu_torch.interop, "
+            "graphblas_tpu_torch.ops.spgemm_sell, "
+            "graphblas_tpu_torch.ops.select, "
+            "graphblas_tpu_torch.kernels.sortreduce, "
+            "graphblas_tpu_torch.utils.native, "
+            "graphblas_tpu_torch.utils.tensor_cache, "
+            "graphblas_tpu_torch.testing; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'graphblas_tpu')); "

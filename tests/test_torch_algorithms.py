@@ -14,7 +14,7 @@ import graphblas_tpu as gb
 from graphblas_tpu import algorithms as jalg
 from graphblas_tpu_torch import algorithms as talg
 from graphblas_tpu_torch import entry as tentry
-from torch_parity import pair, xla_path  # noqa: F401
+from torch_parity import cpu_default, pair, xla_path  # noqa: F401
 
 N = 400
 

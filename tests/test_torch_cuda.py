@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on a card.
+"""The port's CUDA kernels (SpMV K1-K4, sort-reduce K5-K8) against their
+plain torch versions, on a card.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -13,6 +14,9 @@ import pytest
 import scipy.sparse as sps
 import torch
 
+from graphblas_tpu_torch import testing as GT
+from graphblas_tpu_torch.core import monoid as TM
+from graphblas_tpu_torch.kernels import sortreduce as SRD
 from graphblas_tpu_torch.kernels import spmv_onehot as OH
 from graphblas_tpu_torch.kernels import spmv_route as SPR
 
@@ -91,3 +95,84 @@ def test_wrappers_refuse_bad_operands(cuda_device):
         SPR.spmv_route(x[:-1].contiguous(), p)
     with pytest.raises(TypeError):
         SPR.spmv_route_ds(x.double(), p)
+
+
+# ---------------------------------------------------------------------------
+# sort-reduce kernels K5-K8 (csrc/sortreduce.cu)
+# ---------------------------------------------------------------------------
+
+SENT = SRD.SENTINEL
+
+
+def _exact(kind, mon):
+    """Values exact except fp32 plus (FP32_TOL * max|v|)."""
+    return not (kind == "f32" and mon == "PLUS")
+
+
+SR_CASES = [(C, kind, mon) for C in (128, 512, 2048, 8192)
+            for kind, mon in (("i32", "PLUS"), ("f32", "PLUS"),
+                              ("f32", "MIN"), ("f32", "MAX"),
+                              ("bool", "LOR"), ("i32", "TIMES"))]
+
+
+@pytest.mark.parametrize("C,kind,mon", SR_CASES)
+def test_sort_reduce_rows_matches_plain(cuda_device, C, kind, mon):
+    rng = np.random.default_rng(C)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    keys = GT.sr_runs(rng, C, runs=6)
+    vals = GT.sr_values(rng, keys.size, kind)
+    if mon == "TIMES":
+        vals = np.where(rng.random(keys.size) < 0.9, 1, -1).astype(np.int32)
+    args = (t(keys), t(vals), C, getattr(TM, mon))
+    before = SRD.launches["sort_reduce_rows"]
+    got = SRD.sort_reduce_rows(*args, logical=kind == "bool")
+    torch.cuda.synchronize()
+    assert SRD.launches["sort_reduce_rows"] == before + 1
+    want = SRD.sort_reduce_rows_plain(*args, logical=kind == "bool")
+    GT.sr_err(got, want, _exact(kind, mon))
+
+
+@pytest.mark.parametrize("C", (512, 2048, 8192))
+@pytest.mark.parametrize("want", (True, False))
+def test_sort_reduce_tok_and_wide_match_plain(cuda_device, C, want):
+    rng = np.random.default_rng(C + want)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    keys = GT.sr_runs(rng, C, runs=6)
+    vals = GT.sr_values(rng, keys.size, "f32")
+    toks = GT.sr_tokens(rng, keys, C)
+    args = (t(keys), t(vals), t(toks), C, TM.PLUS)
+    got = SRD.sort_reduce_rows_tok(*args, want_token=want)
+    GT.sr_err(got, SRD.sort_reduce_rows_tok_plain(*args, want_token=want),
+              _exact("f32", "PLUS"))
+    kh, kl, tw = GT.sr_wide_keys(rng, C, runs=6)
+    for toks_w in (None, t(tw)):
+        args = (t(kh), t(kl), t(vals), C, TM.MIN)
+        got = SRD.sort_reduce_rows_wide(*args, toks=toks_w, want_token=want)
+        torch.cuda.synchronize()
+        GT.sr_err(got, SRD.sort_reduce_rows_wide_plain(
+            *args, toks=toks_w, want_token=want), _exact("f32", "MIN"))
+
+
+@pytest.mark.parametrize("C", (128, 2048, 8192))
+@pytest.mark.parametrize("want", (True, False))
+def test_sort_reduce_pair1_matches_plain(cuda_device, C, want):
+    rng = np.random.default_rng(3 * C + want)
+    kt = torch.from_numpy(GT.sr_pair1_keys(rng, C, runs=5)).to(cuda_device)
+    got = SRD.sort_reduce_pair1(kt, C, want_token=want)
+    torch.cuda.synchronize()
+    GT.sr_err(got, SRD.sort_reduce_pair1_plain(kt, C, want_token=want), True)
+
+
+def test_sort_reduce_wrappers_refuse_bad_operands(cuda_device):
+    keys = torch.full((4096,), SENT, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        SRD.sort_reduce_rows(keys, torch.zeros(4096, dtype=torch.float64,
+                                               device=cuda_device),
+                             2048, TM.PLUS)
+    with pytest.raises(ValueError):
+        SRD.sort_reduce_rows(keys, torch.zeros(4096, device=cuda_device),
+                             2048, TM.ANY)
+    with pytest.raises(ValueError):
+        SRD.sort_reduce_rows(keys[:3000], torch.zeros(3000,
+                                                      device=cuda_device),
+                             2048, TM.PLUS)

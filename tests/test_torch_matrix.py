@@ -12,8 +12,8 @@ from graphblas_tpu_torch.core import monoid as TM
 from graphblas_tpu_torch.core import ops as TO
 from graphblas_tpu_torch.core.convert import conform as t_conform
 from graphblas_tpu.core.convert import conform as j_conform
-from torch_parity import (assert_same, pair, random_csr, to_port, vec_pair,
-                          xla_path)  # noqa: F401
+from torch_parity import (assert_same, cpu_default, pair,  # noqa: F401
+                          random_csr, to_port, vec_pair, xla_path)
 
 M, N = 37, 29
 
@@ -143,6 +143,52 @@ def test_vector_constructors_take_device():
                                            0.5)).astype(gt.types.FP64
                                                         ).dtype.name == \
         "GrB_FP64"
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without ``device`` the constructors and entry points resolve to the
+    card (the ``device`` option defaults to "cuda") and raise where torch
+    sees none; nothing lands on the CPU unless asked.  No card memory is
+    touched: torch.cuda.is_available is replaced for the test."""
+    from graphblas_tpu_torch import entry, interop
+    from graphblas_tpu_torch.core import config as CFG
+    from graphblas_tpu_torch.ops import build
+    assert CFG._Global().device == "cuda"
+    gt.set_option("device", "cuda")   # the package default
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert CFG.default_device() == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    S = random_csr(np.random.default_rng(1), 4, 4, 0.5)
+    x = np.ones(3, np.float32)
+    makers = [
+        lambda: gt.Matrix.from_scipy(S),
+        lambda: gt.Matrix.from_coo([0], [1], [1.0], (2, 2)),
+        lambda: gt.Matrix.from_dense(np.ones((2, 2))),
+        lambda: gt.Matrix.from_dense_masked(np.ones((2, 2)),
+                                            np.ones((2, 2), bool)),
+        lambda: gt.Matrix.new(gt.types.FP32, 3, 4),
+        lambda: gt.Matrix((3, 4), gt.types.FP32),
+        lambda: gt.Vector.new(gt.types.BOOL, 7, fmt="bitmap"),
+        lambda: gt.Vector.from_coo([1], [2.0], 3),
+        lambda: gt.Vector.from_dense(x),
+        lambda: gt.Scalar.from_value(1.5),
+        lambda: build.build_matrix(gt.Matrix, [0], [0], [1.0], (1, 1), None,
+                                   "plus", None, False),
+        lambda: interop.matrix_from_arrays(
+            (4, 4), "GrB_FP32", "sparse", "row", S.indptr, None, S.indices,
+            S.data, None, False),
+        lambda: interop.vector_from_arrays(3, "GrB_FP32", "full", None, None,
+                                           None, x[:, None], None, False),
+        lambda: entry.entry(),
+    ]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make()
+    # the CPU when asked for; a tensor keeps its own device
+    assert gt.Matrix.from_scipy(S, device="cpu").device.type == "cpu"
+    assert gt.Vector.from_dense(torch.from_numpy(x)).device.type == "cpu"
+    gt.set_option("device", "cpu")
+    assert gt.Matrix.from_scipy(S).device.type == "cpu"
 
 
 APPLY = [("AINV", None), ("ONE", None), ("TIMES", ("second", 2.5)),

@@ -12,8 +12,8 @@ import graphblas_tpu as gb
 import graphblas_tpu_torch as gt
 from graphblas_tpu_torch.core import ops as TO
 from graphblas_tpu_torch.core import semiring as TS
-from torch_parity import (assert_same, pair, random_csr, to_port, vec_pair,
-                          xla_path)  # noqa: F401
+from torch_parity import (assert_same, cpu_default, pair,  # noqa: F401
+                          random_csr, to_port, vec_pair, xla_path)
 
 N = 64
 SEMIRINGS = ["PLUS_TIMES", "MIN_PLUS", "MAX_TIMES", "LOR_LAND"]
@@ -176,7 +176,8 @@ def test_mxm_dense_and_spmm_match(xla_path, srname):
 
 def test_diagonal_scaling_and_spgemm_gate(xla_path):
     """rowscale/colscale with a diagonal operand; a general sparse x
-    sparse product is the unported SpGEMM and raises."""
+    sparse product passes the gate to the ESC SpGEMM (tests in
+    test_torch_spgemm.py) and matches the JAX package."""
     rng = np.random.default_rng(15)
     S = random_csr(rng, N, N, 0.08, np.float32)
     Aj, At = pair(S)
@@ -187,5 +188,5 @@ def test_diagonal_scaling_and_spgemm_gate(xla_path):
     sr = gb.semiring.PLUS_TIMES
     assert_same(gb.mxm(Dj, Aj, sr), gt.mxm(Dt, At, TS.PLUS_TIMES))
     assert_same(gb.mxm(Aj, Dj, sr), gt.mxm(At, Dt, TS.PLUS_TIMES))
-    with pytest.raises(NotImplementedError, match="SpGEMM"):
-        gt.mxm(At, At, TS.PLUS_TIMES)
+    assert_same(gb.mxm(Aj, Aj, sr), gt.mxm(At, At, TS.PLUS_TIMES),
+                scale_tol=1e-5)

@@ -21,7 +21,7 @@ from graphblas_tpu_torch.core import errors as TE
 from graphblas_tpu_torch.kernels import spmv_onehot as OH
 from graphblas_tpu_torch.kernels import spmv_route as SPR
 from graphblas_tpu_torch.ops.mxm import spmv_arrays as t_spmv_arrays
-from torch_parity import random_csr, xla_path  # noqa: F401
+from torch_parity import cpu_default, random_csr, xla_path  # noqa: F401
 
 ADDS = ("plus", "min", "max")
 MULS = ("times", "plus", "first", "second", "pair")

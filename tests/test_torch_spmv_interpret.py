@@ -11,6 +11,7 @@ import torch
 
 from graphblas_tpu.kernels import spmv_route as JSPR
 from graphblas_tpu_torch.kernels import spmv_route as SPR
+from torch_parity import cpu_default  # noqa: F401
 
 pytestmark = pytest.mark.slow
 

@@ -12,6 +12,17 @@ import graphblas_tpu_torch as gt
 from graphblas_tpu_torch import interop
 
 
+@pytest.fixture(autouse=True)
+def cpu_default():
+    """The port's constructors put tensors on the card unless told
+    otherwise; its CPU tests ask for the CPU (each test module imports
+    this autouse fixture)."""
+    old = gt.get_option("device")
+    gt.set_option("device", "cpu")
+    yield
+    gt.set_option("device", old)
+
+
 @pytest.fixture
 def xla_path():
     """Run the JAX side on its XLA path (no Pallas kernels), as its own
@@ -91,5 +102,64 @@ def vec_pair(x, present=None):
     return u, to_port(u)
 
 
-__all__ = ["gt", "gb", "xla_path", "to_port", "dense_jax", "dense_port",
-           "assert_same", "random_csr", "pair", "vec_pair"]
+def sparse_operand(rng, m, n, density, kind):
+    """Random scipy CSR of ``kind`` f32 (normal), bool, i32 or i64 (small
+    integers), duplicates summed."""
+    nnz = max(1, int(m * n * density))
+    r, c = rng.integers(0, m, nnz), rng.integers(0, n, nnz)
+    if kind == "f32":
+        v = rng.standard_normal(nnz).astype(np.float32)
+    elif kind == "bool":
+        v = np.ones(nnz, np.bool_)
+    else:
+        v = rng.integers(1, 9, nnz).astype(np.int32 if kind == "i32"
+                                           else np.int64)
+    S = sps.csr_matrix((v, (r, c)), shape=(m, n))
+    S.sum_duplicates()
+    return S
+
+
+def wide_operands(rng, masked):
+    """A short A (200 rows) times B with n = 2^23 columns: the wide
+    two-plane keys (K8)."""
+    n = 1 << 23
+    ra = np.repeat(np.arange(200), 6)
+    ca = rng.integers(0, 3000, ra.size)
+    A = sps.csr_matrix((rng.integers(1, 5, ra.size).astype(np.float32),
+                        (ra, ca)), shape=(200, n))
+    rb = rng.integers(0, 3000, 4000)
+    cb = np.concatenate([rng.integers(0, 50, 2000),
+                         rng.integers(n - 50, n, 2000)])
+    B = sps.csr_matrix((rng.integers(1, 5, rb.size).astype(np.float32),
+                        (rb, cb)), shape=(n, n))
+    A.sum_duplicates()
+    B.sum_duplicates()
+    M = None
+    if masked:
+        C = (A @ B).tocoo()
+        sel = rng.random(C.nnz) < 0.5
+        M = sps.csr_matrix((np.ones(sel.sum(), np.float32),
+                            (C.row[sel], C.col[sel])), shape=(200, n))
+    return A, B, M
+
+
+def tc_graph(rng, n=200, deg=6):
+    """A random directed pattern graph (values 1)."""
+    S = sps.csr_matrix((np.ones(n * deg, np.float32),
+                        (rng.integers(0, n, n * deg),
+                         rng.integers(0, n, n * deg))), shape=(n, n))
+    S.sum_duplicates()
+    S.data[:] = 1
+    return S
+
+
+def tc_scipy(S):
+    """sum((L L') .* L) with L = tril(S, -1) on the pattern (scipy)."""
+    L = sps.tril(S, -1).tocsr()
+    L.data[:] = 1
+    return int((L @ L.T).multiply(L).sum())
+
+
+__all__ = ["gt", "gb", "cpu_default", "xla_path", "to_port", "dense_jax", "dense_port",
+           "assert_same", "random_csr", "pair", "vec_pair", "sparse_operand",
+           "wide_operands", "tc_graph", "tc_scipy"]
