@@ -5,18 +5,22 @@
 
 Phases, each printing one line (more for the per-graph phases):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile graphblas_tpu_torch/csrc/{spmv,sortreduce}.cu, one
-     nvcc each, started together;
+  2. build: compile graphblas_tpu_torch/csrc/{spmv,sortreduce,permute}.cu,
+     one nvcc each, started together;
   3. kernels: every kernel against its plain torch version on the card —
      the SpMV kernels K1-K4 at small random sizes with empty rows and one
      row of 10^5 nonzeros (exact for min/max, 1e-5*max|y| for fp32 plus,
-     1e-12*max|y| for fp64), and the sort-reduce kernels K5-K8 on runs of
-     2048 and 8192 slots with many duplicate keys, empty, all-SENTINEL and
-     full runs (keys exact; values exact for int32, bool, min/max and K7,
-     1e-5*max|v| for fp32 plus);
+     1e-12*max|y| for fp64), the sort-reduce kernels K5-K8 on runs of
+     2048 and 8192 slots and K5/K6 on runs of 32768 (the cluster kernel)
+     with many duplicate keys, empty, all-SENTINEL, full runs and one key
+     repeated over a whole run (keys exact; values exact for int32, bool,
+     min/max and K7, 1e-5*max|v| for fp32 plus), K9 on a random
+     permutation of 2^24 + 777 fp32 elements (exact), and two K1 and two
+     K3 min-plus calls at graph (b) bitwise equal;
   4. SpMV main path at real size through the public API on two graphs —
      (a) bench.py's uniform graph (n = 2^20, degree 16, seed 0) and
-     (b) bench_real.rmat_edges(20, 16, seed 7), a power-law graph — with
+     (b) RMAT scale 20, edge factor 16, seed 7 (bench_real.py's graph,
+     from the port's copy of its generator), a power-law graph — with
      mxv/vxm (unplanned, planned with mask + accum, min-plus), the fp64
      planned SpMV, CSC conversion, PageRank, BFS and SSSP, each checked
      against scipy/numpy on the host;
@@ -24,16 +28,17 @@ Phases, each printing one line (more for the per-graph phases):
   6. SpMV times: each kernel, its plain version and one torch.sparse CSR
      product (K1, K2, K4) at graphs (a) and (b) (CUDA events, median of
      20 after warm-up) beside the bound of its bytes;
-  7. SpGEMM main path through gt.mxm, gt.select and triangle_count, with
-     the sort-reduce launch counts set to 0 before and read after:
-     (a) C = A*A on graph (a) (K5; nnz 268,406,919, 4096 sampled rows
-     exact against scipy, fp64 checksum (S'1).(S1)), triangle_count = 647
-     (K7; also scipy's sum((L L').*L)), the materialised masked count
-     mxm(L, L', PLUS_PAIR, mask=L) (K6) and a complemented-mask product
-     (sampled rows exact); (b) triangle_count(RMAT-18) = 19,595,360;
-     (c) C = A*A and C<A> = A*A with n = 2^23 columns, degree 2 (the wide
-     keys, K8; sampled rows exact); every sort-reduce kernel launched,
-     and the native layout sweep ran (never the Python one);
+  7. SpGEMM main path (the SELL tier) through gt.mxm, gt.select and
+     triangle_count, with the sort-reduce launch counts set to 0 before
+     and read after: (a) C = A*A on graph (a) (K5; nnz 268,406,919, 4096
+     sampled rows exact against scipy, fp64 checksum (S'1).(S1)),
+     triangle_count = 647 (K7; also scipy's sum((L L').*L)), the
+     materialised masked count mxm(L, L', PLUS_PAIR, mask=L) (K6) and a
+     complemented-mask product (sampled rows exact); (b)
+     triangle_count(RMAT-18) = 19,595,360; (c) C = A*A and C<A> = A*A
+     with n = 2^23 columns, degree 2 (the wide keys, K8; sampled rows
+     exact); every sort-reduce kernel launched, and the native layout
+     sweep ran (never the Python one);
   8. sort-reduce times: each of K5-K8 and its plain version on the
      inputs the main path gave it (its first launch), beside the bound of
      its bytes;
@@ -41,11 +46,24 @@ Phases, each printing one line (more for the per-graph phases):
  10. where the SpGEMM time goes: one warm A*A (a) and one warm
      triangle_count (b), with the SELL phases timed on the host, then
      under torch.profiler (device busy share, device time by operator
-     and by kernel).
+     and by kernel);
+ 11. the fast SpGEMM tier (spgemm_tier "v1") at full size, the launch
+     counts set to 0 before and read after: (a) A*A (nnz, sampled rows,
+     checksum as in phase 7) and triangle_count = 647, RMAT-18
+     triangle_count = 19,595,360 and RMAT-18 A*A (nnz 1,278,009,346,
+     4096 sampled rows exact, checksum); rows and padded slots per sort
+     class and the fallback rows; K5 launched at every C in (128 ...
+     32768) and K6 at 32768; wall times cold and warm; one warm RMAT-18
+     A*A traced as in phase 10;
+ 12. K5 and K6 at C = 32768 and their plain versions on the fast tier's
+     first inputs at that C, beside the bound of their bytes;
+ 13. K9: global_permute of graph (a)'s CSR -> CSC value permutation
+     (launches counted), exact against the plain version and scipy's CSC
+     values, timed beside its bound and one torch.take.
 The two lines before the last are the card (nvidia-smi) and one JSON
 object describing the kernels; the last line is the result JSON.  Any
 failure raises and exits non-zero.  Needs one CUDA card; exits non-zero
-without one.  ~95 s on one H100 (nvcc ~5 s of it).
+without one.
 """
 
 import json
@@ -64,6 +82,7 @@ ADDS = ("plus", "min", "max")
 MULS = ("times", "plus", "first", "second", "pair")
 SPMV_SRC = "graphblas_tpu_torch/csrc/spmv.cu"
 SR_SRC = "graphblas_tpu_torch/csrc/sortreduce.cu"
+PERMUTE_SRC = "graphblas_tpu_torch/csrc/permute.cu"
 KERNELS = {   # key: (name, source, TPU kernel replaced)
     "K1": ("spmv_planned<float,plus,times>", SPMV_SRC,
            "graphblas_tpu/kernels/spmv_route.py:1446"),
@@ -81,12 +100,22 @@ KERNELS = {   # key: (name, source, TPU kernel replaced)
            "graphblas_tpu/kernels/sortreduce.py:360"),
     "K8": ("sort_reduce_kernel + key2 (sort_reduce_rows_wide)", SR_SRC,
            "graphblas_tpu/kernels/sortreduce.py:435"),
+    "K5@32768": ("sort_reduce_cluster_kernel (sort_reduce_rows, C=32768)",
+                 SR_SRC, "graphblas_tpu/kernels/sortreduce.py:252"),
+    "K6@32768": ("sort_reduce_cluster_kernel + tokens "
+                 "(sort_reduce_rows_tok, C=32768)", SR_SRC,
+                 "graphblas_tpu/kernels/sortreduce.py:465"),
+    "K9": ("permute_gather_32 (global_permute, tile_permute, "
+           "sublane_permute)", PERMUTE_SRC,
+           "graphblas_tpu/kernels/static_route.py:580"),
 }
+BIG_C = 32768
 SR_WRAPPERS = {"K5": "sort_reduce_rows", "K6": "sort_reduce_rows_tok",
                "K7": "sort_reduce_pair1", "K8": "sort_reduce_rows_wide"}
 UNIFORM_CNNZ = 268_406_919   # the compiled SuiteSparse's answers
 UNIFORM_NTRI = 647           # (BENCH_ALL.json, bench_real.py)
 RMAT18_NTRI = 19_595_360
+RMAT18_CNNZ = 1_278_009_346
 
 
 def card_line():
@@ -213,12 +242,12 @@ def bench_graph():
     return uniform_graph(1 << 20, 16, 0)
 
 
-def rmat_graph():
-    """bench_real.py's power-law graph: RMAT scale 20, edge factor 16,
-    seed 7 (pattern values)."""
+def rmat_graph(scale=20):
+    """bench_real.py's power-law graph: RMAT at ``scale``, edge factor 16,
+    seed 7 (pattern values), from the port's copy of its generator."""
     import scipy.sparse as sps
-    from bench_real import rmat_edges
-    ri, ci, n = rmat_edges(20, 16, np.random.default_rng(7))
+    from graphblas_tpu_torch.testing import rmat_edges
+    ri, ci, n = rmat_edges(scale, 16, np.random.default_rng(7))
     S = sps.csr_matrix((np.ones(ri.size, np.float32), (ri, ci)),
                        shape=(n, n))
     S.sum_duplicates()
@@ -430,7 +459,7 @@ def phase_sr_kernels(errs):
                                              exact))
         n_cmp += 1
 
-    for C in (2048, 8192):
+    for C in (2048, 8192, BIG_C):
         keys = GT.sr_runs(rng, C)
         vals = {k: GT.sr_values(rng, keys.size, k)
                 for k in ("f32", "i32", "bool")}
@@ -440,13 +469,16 @@ def phase_sr_kernels(errs):
             args = (cu(keys), cu(vals[kind]), C, getattr(TM, mon))
             exact = not (kind == "f32" and mon == "PLUS")
             kw = {"logical": kind == "bool"}
-            check("K5", SRD.sort_reduce_rows, SRD.sort_reduce_rows_plain,
-                  args, kw, exact)
+            big = "@32768" if C == BIG_C else ""
+            check("K5" + big, SRD.sort_reduce_rows,
+                  SRD.sort_reduce_rows_plain, args, kw, exact)
             for want in (True, False):
-                check("K6", SRD.sort_reduce_rows_tok,
+                check("K6" + big, SRD.sort_reduce_rows_tok,
                       SRD.sort_reduce_rows_tok_plain,
                       args[:2] + (toks,) + args[2:],
                       dict(kw, want_token=want), exact)
+        if C == BIG_C:          # K7 and K8 take C <= 8192
+            continue
         kh, kl, tw = GT.sr_wide_keys(rng, C)
         tw = cu(tw)
         for mon, kind in (("PLUS", "f32"), ("MIN", "f32"), ("PLUS", "i32")):
@@ -464,15 +496,54 @@ def phase_sr_kernels(errs):
     return n_cmp
 
 
-class Recorder:
-    """Records the first call of each sort-reduce wrapper during the main
-    path (its inputs are the shapes phase 8 times); the call itself goes
-    to the wrapper, which counts its own launches."""
+def phase_permute_kernel(errs):
+    """Phase 3c: K9 against its plain version on a random permutation of
+    2^24 + 777 fp32 elements (exact)."""
+    import torch
+    from graphblas_tpu_torch.kernels import static_route as STR
+    rng = np.random.default_rng(14)
+    n = (1 << 24) + 777
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    plan = STR.GlobalPermutePlan(torch.from_numpy(rng.permutation(n))
+                                 .cuda(), n)
+    got = STR.global_permute(x, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, STR.permute_plain(x, plan.perm)), "K9"
+    errs["K9"] = max(errs["K9"], 0.0)
+    return n
 
-    def __init__(self):
+
+def phase_repeat(S):
+    """Phase 3d: the planned SpMV at graph (b) is bitwise repeatable (its
+    split rows fold without atomics): two K1 calls, two K3 min-plus
+    calls.  Returns the number of extra sub-rows folded."""
+    import torch
+    from graphblas_tpu_torch.kernels import spmv_route as SPR
+    ip, ix, v = csr_cuda(S)
+    p = SPR.build_plan(ip, ix, v, S.shape)
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        S.shape[1]).astype(np.float32)).cuda()
+    a, b = SPR.spmv_route(x, p), SPR.spmv_route(x, p)
+    c = SPR.spmv_route_monoid(x, p, add="min", mul="plus")
+    d = SPR.spmv_route_monoid(x, p, add="min", mul="plus")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b), "K1 not bitwise repeatable"
+    assert torch.equal(c, d), "K3 min-plus not bitwise repeatable"
+    return p.m_sub - p.m
+
+
+class Recorder:
+    """Records the first call of each sort-reduce wrapper during a path
+    (``first``; its inputs are the shapes phase 8 times) and, for C in
+    ``caps``, its first call at that C (``by_cap[(key, C)]``); the call
+    itself goes to the wrapper, which counts its own launches."""
+
+    def __init__(self, caps=()):
         from graphblas_tpu_torch.kernels import sortreduce as SRD
         self.SRD = SRD
+        self.caps = caps
         self.first = {}
+        self.by_cap = {}
         self.orig = {}
 
     def __enter__(self):
@@ -484,7 +555,10 @@ class Recorder:
 
     def _wrap(self, key, fn):
         def call(*args, **kw):
+            C = next(a for a in args if isinstance(a, int))
             self.first.setdefault(key, (args, kw))
+            if C in self.caps:
+                self.by_cap.setdefault((key, C), (args, kw))
             return fn(*args, **kw)
         return call
 
@@ -534,7 +608,6 @@ def spgemm_path(rng):
     fallback rows at RMAT-18)."""
     import scipy.sparse as sps
     import graphblas_tpu_torch as gt
-    from bench_real import rmat_edges
     from graphblas_tpu_torch.core import semiring as SR
     from graphblas_tpu_torch.core import types as T
     t0 = time.perf_counter()
@@ -544,14 +617,7 @@ def spgemm_path(rng):
     n = S.shape[0]
     A = gt.Matrix.from_scipy(S, device="cuda")
     C, wall["spgemm_a_cold"] = timed(lambda: gt.mxm(A, A, SR.PLUS_TIMES))
-    assert C.nvals == UNIFORM_CNNZ, C.nvals
-    rows = np.sort(rng.choice(n, 4096, replace=False))
-    Sr = S[rows]
-    assert_rows(C, Sr @ S, rows, "A*A")
-    csum = float(C.values.double().sum())
-    ones = np.ones(n)
-    want = float((S.T @ ones).astype(np.float64) @ (S @ ones))
-    assert csum == want, (csum, want)
+    csum = check_product(C, S, rng, UNIFORM_CNNZ, "A*A")
     del C
     C, wall["spgemm_a_warm"] = timed(lambda: gt.mxm(A, A, SR.PLUS_TIMES))
     assert C.nvals == UNIFORM_CNNZ
@@ -559,6 +625,8 @@ def spgemm_path(rng):
     # complemented structural mask: C<!A> = A*A (K6, want_token False)
     d = gt.Descriptor(mask_structure=True, mask_complement=True)
     Cc = gt.mxm(A, A, SR.PLUS_TIMES, mask=A, desc=d)
+    rows = np.sort(rng.choice(n, 4096, replace=False))
+    Sr = S[rows]
     full = Sr @ S
     assert_rows(Cc, full - full.multiply(Sr != 0), rows, "A*A<!A>")
     del Cc
@@ -580,10 +648,8 @@ def spgemm_path(rng):
           f"{int(Cm.values.sum())} scipy_ntri=match", flush=True)
     del Cm, Lt, LT, A
     # (b) RMAT-18 triangle count (hub rows take the classic fallback)
-    ri, ci, n18 = rmat_edges(18, 16, np.random.default_rng(7))
-    S18 = sps.csr_matrix((np.ones(ri.size, np.float32), (ri, ci)),
-                         shape=(n18, n18))
-    S18.sum_duplicates()
+    S18 = rmat_graph(18)
+    n18 = S18.shape[0]
     A18 = gt.Matrix.from_scipy(S18, device="cuda")
     msgs = []
     gt.set_option("printf", msgs.append)
@@ -615,12 +681,152 @@ def spgemm_path(rng):
     return wall
 
 
+def check_product(C, S, rng, cnnz, what):
+    """C = S*S on a pattern S: the compiled SuiteSparse's nnz, 4096
+    sampled rows exact against scipy, and the fp64 sum of C equal to
+    (S'1).(S1); returns the sum."""
+    import torch
+    n = S.shape[0]
+    assert C.nvals == cnnz, (what, C.nvals, cnnz)
+    rows = np.sort(rng.choice(n, 4096, replace=False))
+    assert_rows(C, S[rows] @ S, rows, what)
+    csum = float(C.values.sum(dtype=torch.float64))
+    ones = np.ones(n)
+    want = float((S.T @ ones) @ (S @ ones))
+    assert csum == want, (what, csum, want)
+    return csum
+
+
+def with_burble(fn):
+    """fn() with burble on: (its result, its spgemm-fast lines)."""
+    import graphblas_tpu_torch as gt
+    msgs = []
+    gt.set_option("printf", msgs.append)
+    gt.set_option("burble", True)
+    try:
+        out = fn()
+    finally:
+        gt.set_option("burble", False)
+    return out, [m[5:] for m in msgs if "spgemm-fast:" in m]
+
+
+def fast_tier_path(rng, card):
+    """Phase 11: the fast SpGEMM tier at full size (spgemm_tier "v1"),
+    the sort-reduce launch counts set to 0 before and read after: A*A and
+    triangle_count at graph (a), triangle_count and A*A at RMAT-18, each
+    against the compiled SuiteSparse's answer; then one warm RMAT-18 A*A
+    traced.  Returns (wall times, recorder, launches by (wrapper, C))."""
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch.core import semiring as SR
+    from graphblas_tpu_torch.kernels import sortreduce as SRD
+    wall = {}
+    old = gt.get_option("spgemm_tier")
+    gt.set_option("spgemm_tier", "v1")
+    try:
+        SRD.reset_launches()
+        with Recorder(caps=(BIG_C,)) as rec:
+            S = bench_graph()
+            A = gt.Matrix.from_scipy(S, device="cuda")
+            (C, lines), wall["fast_spgemm_a_cold"] = timed(
+                lambda: with_burble(lambda: gt.mxm(A, A, SR.PLUS_TIMES)))
+            csum = check_product(C, S, rng, UNIFORM_CNNZ, "fast A*A (a)")
+            del C
+            C, wall["fast_spgemm_a_warm"] = timed(
+                lambda: gt.mxm(A, A, SR.PLUS_TIMES))
+            assert C.nvals == UNIFORM_CNNZ
+            del C
+            for k in ("fast_tc_a_cold", "fast_tc_a_warm"):
+                ntri, wall[k] = timed(lambda: gt.triangle_count(A))
+                assert ntri == UNIFORM_NTRI, ntri
+            print(f"[11 fast tier a] cnnz={UNIFORM_CNNZ} sampled_rows=4096 "
+                  f"exact checksum={csum:.0f} ntri={ntri} | "
+                  + "; ".join(lines), flush=True)
+            del A
+            S18 = rmat_graph(18)
+            A18 = gt.Matrix.from_scipy(S18, device="cuda")
+            (ntri, lines), wall["fast_tc_b_cold"] = timed(
+                lambda: with_burble(lambda: gt.triangle_count(A18)))
+            assert ntri == RMAT18_NTRI, ntri
+            ntri, wall["fast_tc_b_warm"] = timed(
+                lambda: gt.triangle_count(A18))
+            assert ntri == RMAT18_NTRI, ntri
+            print(f"[11 fast tier b] RMAT-18 ntri={ntri} | "
+                  + "; ".join(lines), flush=True)
+            (C, lines), wall["fast_spgemm_b_cold"] = timed(
+                lambda: with_burble(lambda: gt.mxm(A18, A18,
+                                                   SR.PLUS_TIMES)))
+            csum = check_product(C, S18, rng, RMAT18_CNNZ,
+                                 "fast A*A RMAT-18")
+            del C
+            C, wall["fast_spgemm_b_warm"] = timed(
+                lambda: gt.mxm(A18, A18, SR.PLUS_TIMES))
+            assert C.nvals == RMAT18_CNNZ
+            del C
+            print(f"[11 fast tier b] RMAT-18 A*A n={S18.shape[0]} "
+                  f"nnz={S18.nnz} cnnz={RMAT18_CNNZ} sampled_rows=4096 "
+                  f"exact checksum={csum:.0f} | " + "; ".join(lines),
+                  flush=True)
+        counts = dict(SRD.launches_by_cap)
+        print("[11 launches] " + ", ".join(
+            f"{name}@C={c}: {v}" for (name, c), v in sorted(counts.items()))
+            + f" | {card} | wall " + " ".join(
+                f"{k}_s={v:.3f}" for k, v in wall.items()), flush=True)
+        for c in SRD.CAPS:
+            assert counts.get(("sort_reduce_rows", c), 0) > 0, (c, counts)
+        assert counts.get(("sort_reduce_rows_tok", BIG_C), 0) > 0, counts
+        traced("fast A*A RMAT-18", lambda: gt.mxm(A18, A18, SR.PLUS_TIMES),
+               card, FAST_PHASES, "11 trace")
+    finally:
+        gt.set_option("spgemm_tier", old)
+    return wall, rec, counts
+
+
+def phase_permute(card, errs):
+    """Phase 13: K9 through ``global_permute`` on graph (a)'s CSR -> CSC
+    value permutation, the launch count set to 0 before and read after:
+    exact against the plain version and scipy's CSC values; times beside
+    the bound (12 B an element) and one torch.take."""
+    import scipy.sparse as sps
+    import torch
+    from graphblas_tpu_torch.kernels import static_route as STR
+    S = bench_graph()
+    nnz = S.nnz
+    P = sps.csr_matrix((np.arange(nnz, dtype=np.int64), S.indices,
+                        S.indptr), shape=S.shape).tocsc()
+    xv = np.random.default_rng(16).standard_normal(nnz).astype(np.float32)
+    x = torch.from_numpy(xv).cuda()
+    plan = STR.GlobalPermutePlan(torch.from_numpy(P.data).cuda(), nnz)
+    STR.launches = 0
+    got = STR.global_permute(x, plan)
+    torch.cuda.synchronize()
+    launches = STR.launches
+    assert launches > 0
+    want = sps.csr_matrix((xv, S.indices, S.indptr), shape=S.shape) \
+        .tocsc().data
+    assert np.array_equal(got.cpu().numpy(), want), "K9 vs scipy CSC"
+    assert torch.equal(got, STR.permute_plain(x, plan.perm)), "K9 vs plain"
+    errs["K9"] = max(errs["K9"], 0.0)
+    perm64 = plan.perm.long()
+    kern = lambda: STR.global_permute(x, plan)  # noqa: E731
+    ref = lambda: STR.permute_plain(x, plan.perm)  # noqa: E731
+    tp1, tk1, tk2, tp2 = time_ms(ref), time_ms(kern), time_ms(kern), \
+        time_ms(ref)
+    tl = time_ms(lambda: torch.take(x, perm64))
+    out = ((tk1 + tk2) / 2, (tp1 + tp2) / 2, tl, *bound(12 * nnz, 0))
+    print(f"[13 permute] {card} | {KERNELS['K9'][0]}: {out[0]:.3f} ms on "
+          f"{nnz} elements (graph (a) CSR -> CSC), plain {out[1]:.3f} ms, "
+          f"torch.take {tl:.3f} ms, bound {out[3]:.4f} ms ({out[4]}); "
+          f"launches {launches}; exact vs plain and scipy", flush=True)
+    return launches, out
+
+
 SR_BYTES = {"K5": 16, "K6": 20, "K7": 8}   # per slot; K8 below
 
 
-def phase_sr_times(rec, card, errs):
-    """Phase 8: K5-K8 and their plain versions on their first main-path
-    inputs."""
+def phase_sr_times(calls, card, errs, tag="8 sort-reduce times"):
+    """Phase 8 (and 12): sort-reduce kernels and their plain versions on
+    the main-path inputs ``calls`` ({key: (args, kw)}; key K5..K8, or
+    K5@32768 / K6@32768)."""
     import torch
     from graphblas_tpu_torch import testing as GT
     from graphblas_tpu_torch.kernels import sortreduce as SRD
@@ -629,18 +835,19 @@ def phase_sr_times(rec, card, errs):
               "K7": SRD.sort_reduce_pair1_plain,
               "K8": SRD.sort_reduce_rows_wide_plain}
     out = {}
-    for key, name in SR_WRAPPERS.items():
-        args, kw = rec.first[key]
+    for key, (args, kw) in calls.items():
+        base = key.split("@")[0]
+        name = SR_WRAPPERS[base]
         kern = lambda: getattr(SRD, name)(*args, **kw)  # noqa: E731
-        ref = lambda: plains[key](*args, **kw)  # noqa: E731
+        ref = lambda: plains[base](*args, **kw)  # noqa: E731
         C = next(a for a in args if isinstance(a, int))
-        vals = None if key == "K7" else args[2 if key == "K8" else 1]
+        vals = None if base == "K7" else args[2 if base == "K8" else 1]
         exact = vals is None or not (vals.dtype == torch.float32
                                      and args[-1].op.name == "GrB_PLUS")
         errs[key] = max(errs[key], GT.sr_err(kern(), ref(), exact))
         slots = args[0].numel()
-        per = SR_BYTES.get(key) or (28 if kw.get("toks") is not None
-                                    else 24)
+        per = SR_BYTES.get(base) or (28 if kw.get("toks") is not None
+                                     else 24)
         tp1 = time_ms(ref, reps=5)
         tk1 = time_ms(kern)
         tk2 = time_ms(kern)
@@ -650,7 +857,7 @@ def phase_sr_times(rec, card, errs):
         # (ms, plain ms, library ms: no single torch call, bound, by)
         out[key] = ((tk1 + tk2) / 2, (tp1 + tp2) / 2, None,
                     *bound(slots * per, slots * (C.bit_length())))
-        print(f"[8 sort-reduce times] {card} | {key} {KERNELS[key][0]}: "
+        print(f"[{tag}] {card} | {key} {KERNELS[key][0]}: "
               f"{out[key][0]:.3f} ms on {slots} slots (C={C}, "
               f"{slots / out[key][0] / 1e6:.2f} Gslot/s), plain "
               f"{out[key][1]:.3f} ms, bound {out[key][3]:.4f} ms "
@@ -660,6 +867,11 @@ def phase_sr_times(rec, card, errs):
 
 SPGEMM_PHASES = {"spgemm_sell": ("_prep", "_pass1", "_counts", "_pass2"),
                  "mxm": ("_spgemm_block",)}
+# the fast tier: whole blocks, within them the expansion + sort-reduce of
+# each class and the classic ESC (expansion, sort-reduce) of the rows over
+# the top class; the rest of a block is placement and row counts
+FAST_PHASES = {"spgemm_fast": ("_block", "_class_sort"),
+               "mxm": ("_spgemm_expand_at", "_spgemm_block")}
 
 
 def _dev_us(e):
@@ -689,17 +901,19 @@ def _busy_s(events):
     return busy / 1e6
 
 
-def traced(label, fn, card):
-    """Phase 10: one warm call of ``fn`` with its SpGEMM phases timed on
-    the host (each wrapped in synchronize), then one under torch.profiler:
-    device busy time against wall time, and where the device time goes
-    (by operator and by kernel, each its own time)."""
+def traced(label, fn, card, phases=SPGEMM_PHASES, tag="10 trace"):
+    """One warm call of ``fn`` with its SpGEMM phases (``phases``) timed
+    on the host (each wrapped in synchronize), then one under
+    torch.profiler: device busy time against wall time, and where the
+    device time goes (by operator and by kernel, each its own time).
+    Returns the idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from graphblas_tpu_torch.ops import mxm as M
+    from graphblas_tpu_torch.ops import spgemm_fast as SGF
     from graphblas_tpu_torch.ops import spgemm_sell as SGS
-    mods = {"spgemm_sell": SGS, "mxm": M}
+    mods = {"spgemm_sell": SGS, "spgemm_fast": SGF, "mxm": M}
     spent = {}
     orig = {}
 
@@ -713,7 +927,7 @@ def traced(label, fn, card):
             return out
         return call
 
-    for mod, names in SPGEMM_PHASES.items():
+    for mod, names in phases.items():
         for name in names:
             orig[(mod, name)] = getattr(mods[mod], name)
             setattr(mods[mod], name, wrap(name, orig[(mod, name)]))
@@ -734,28 +948,23 @@ def traced(label, fn, card):
                         for e in ops[:6])
     top_k = ", ".join(f"{e.key[:48]} {_dev_us(e) / 1e3:.1f} ms x{e.count}"
                       for e in kern[:6])
-    print(f"[10 trace {label}] {card} | wall {wall:.3f} s; host-timed "
+    print(f"[{tag} {label}] {card} | wall {wall:.3f} s; host-timed "
           f"phases " + " ".join(f"{k}={v:.3f}s" for k, v in spent.items())
           + f" | profiled wall {wall_p:.3f} s, device busy {busy:.3f} s "
           f"(idle {1 - busy / wall_p:.1%}) | device time by operator: "
           f"{top_ops} | by kernel: {top_k}", flush=True)
+    return 1 - busy / wall_p
 
 
 def phase_trace(card):
     import graphblas_tpu_torch as gt
-    import scipy.sparse as sps
-    from bench_real import rmat_edges
     from graphblas_tpu_torch.core import semiring as SR
     S = bench_graph()
     A = gt.Matrix.from_scipy(S, device="cuda")
     gt.mxm(A, A, SR.PLUS_TIMES)                     # warm: prep cached
     traced("A*A uniform 2^20", lambda: gt.mxm(A, A, SR.PLUS_TIMES), card)
     del A
-    ri, ci, n18 = rmat_edges(18, 16, np.random.default_rng(7))
-    S18 = sps.csr_matrix((np.ones(ri.size, np.float32), (ri, ci)),
-                         shape=(n18, n18))
-    S18.sum_duplicates()
-    A18 = gt.Matrix.from_scipy(S18, device="cuda")
+    A18 = gt.Matrix.from_scipy(rmat_graph(18), device="cuda")
     gt.triangle_count(A18)                          # warm: L, L' cached
     traced("triangle_count RMAT-18", lambda: gt.triangle_count(A18), card)
 
@@ -783,16 +992,22 @@ def main():
           f"ptxas: {len(regs)} kernels, "
           f"{max((ln for ln in regs), key=len, default='')}", flush=True)
     # 3. kernels vs plain versions
+    graphs = {"a (bench.py uniform 2^20 x16)": bench_graph(),
+              "b (RMAT-20 x16)": rmat_graph()}
     errs = {k: 0.0 for k in KERNELS}
     t0 = time.perf_counter()
     n_cmp, shape, max_row = phase_kernels(errs)
     n_sr = phase_sr_kernels(errs)
+    n_perm = phase_permute_kernel(errs)
+    n_extra = phase_repeat(graphs["b (RMAT-20 x16)"])
     print(f"[3 kernels] {n_cmp} SpMV instantiations match their plain "
           f"versions (min/max exact, fp32 plus <= {FP32_TOL}*max|y|, fp64 "
           f"<= {FP64_TOL}*max|y|) at {shape[0]}x{shape[1]}, max row "
-          f"{max_row}; {n_sr} sort-reduce comparisons at C = 2048, 8192 "
-          f"(keys, ints, bool, min/max and K7 exact, fp32 plus <= "
-          f"{FP32_TOL}*max|v|); max|err| " + ", ".join(
+          f"{max_row}; {n_sr} sort-reduce comparisons at C = 2048, 8192, "
+          f"32768 (K5/K6 only; keys, ints, bool, min/max and K7 exact, "
+          f"fp32 plus <= {FP32_TOL}*max|v|); K9 exact on {n_perm} "
+          f"elements; K1 and K3 min-plus bitwise repeatable at graph (b) "
+          f"({n_extra} extra sub-rows folded); max|err| " + ", ".join(
               f"{k}={v:.3e}" for k, v in errs.items())
           + f"; {time.perf_counter() - t0:.1f} s", flush=True)
     # 4. main path; 5. launch counts
@@ -801,8 +1016,6 @@ def main():
     from graphblas_tpu_torch.kernels import spmv_route as SPR
     from graphblas_tpu_torch.utils import native as NAT
     rng = np.random.default_rng(3)
-    graphs = {"a (bench.py uniform 2^20 x16)": bench_graph(),
-              "b (RMAT-20 x16)": rmat_graph()}
     OH.launches = 0
     for k in SPR.launches:
         SPR.launches[k] = 0
@@ -819,8 +1032,7 @@ def main():
     ta = times[next(iter(times))]
     del states, times, graphs
     # 7. SpGEMM main path, sort-reduce launch counts
-    for k in SRD.launches:
-        SRD.launches[k] = 0
+    SRD.reset_launches()
     for k in NAT.sweeps:
         NAT.sweeps[k] = 0
     with Recorder() as rec:
@@ -833,12 +1045,23 @@ def main():
     assert all(counts[k] > 0 for k in SR_WRAPPERS), counts
     assert NAT.sweeps["python"] == 0, NAT.sweeps
     # 8. sort-reduce times
-    ta.update(phase_sr_times(rec, card, errs))
+    ta.update(phase_sr_times(rec.first, card, errs))
     del rec
     # 9. wall times; 10. where the SpGEMM time goes
     print(f"[9 wall] {card} | " + " ".join(
         f"{k}_s={v:.3f}" for k, v in wall.items()), flush=True)
     phase_trace(card)
+    # 11. the fast tier at full size; 12. its C = 32768 kernels' times
+    _, rec, by_cap = fast_tier_path(rng, card)
+    for key, name in (("K5", "sort_reduce_rows"),
+                      ("K6", "sort_reduce_rows_tok")):
+        counts[f"{key}@{BIG_C}"] = by_cap[(name, BIG_C)]
+    ta.update(phase_sr_times(
+        {f"{k}@{BIG_C}": rec.by_cap[(k, BIG_C)] for k in ("K5", "K6")},
+        card, errs, "12 sort-reduce times C=32768"))
+    del rec
+    # 13. K9
+    counts["K9"], ta["K9"] = phase_permute(card, errs)
     # result lines
     print(card_line())
     print(json.dumps({"kernels": [

@@ -49,12 +49,33 @@
 // step.  C up to 2048 fits the 48 KB static window; C = 8192 asks for
 // dynamic shared memory above 48 KB with cudaFuncSetAttribute.
 //
+// C = 32768 (K5/K6 only; the top sort class of the fast SpGEMM tier,
+// ops/spgemm_fast.py): a run of 32768 slots needs 640 KB in this layout
+// (20 B a slot with tokens), and even key + value alone (256 KB) is over
+// the 227 KB a block may have.  sort_reduce_cluster_kernel therefore runs
+// one 32768-slot run on a CLUSTER of 4 thread blocks (Hopper's distributed
+// shared memory): each block holds one quarter (8192 slots, 160 KB) in the
+// layout above.  Bitonic stages with exchange distance j < 8192 stay inside
+// a block; the three with j >= 8192 (k = 16384, j = 8192; k = 32768,
+// j = 16384 and 8192) read the partner slot in the partner block through
+// cluster.map_shared_rank, each thread writing only its own slots after a
+// cluster barrier (both partners read before either writes).  Group starts
+// and ends at a quarter's edge read the neighbour block's last or first
+// key.  The segmented scan runs per block; each block then folds in the
+// scan totals of the blocks before it, nearest first, up to the first one
+// that holds a group start (one key may fill the whole run).  Bound: 16
+// B/slot (K5) or 20 (K6) of device memory, as at smaller C; 120
+// compare-exchange passes set the time.
+//
 // Every launcher returns cudaGetLastError() and launches on the stream it
 // is given; it allocates nothing and does not synchronise.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -306,6 +327,185 @@ sort_pair1_kernel(const int32_t* __restrict__ keys,
   }
 }
 
+// ---------------------------------------------------------------------------
+// C = 32768 (K5/K6): one run per cluster of kClusterBlocks blocks of kQ slots
+// ---------------------------------------------------------------------------
+
+constexpr int kClusterBlocks = 4;
+constexpr int kQ = 8192;                       // slots a block holds
+constexpr int kBigC = kClusterBlocks * kQ;     // 32768
+constexpr int kCThreads = 1024;
+constexpr int kPer = kQ / kCThreads;           // slots a thread owns
+
+// A bitonic pass with exchange distance j < kQ: both partners in this
+// block.  The direction bit comes from the slot's index in the whole run.
+template <typename V>
+__device__ void block_pass(int gbase, int k, int j, int32_t* sk, V* sv,
+                           int32_t* st, bool tok) {
+  for (int i = threadIdx.x; i < kQ / 2; i += kCThreads) {
+    const int lo = 2 * i - (i & (j - 1));
+    const int hi = lo + j;
+    const bool asc = ((gbase + lo) & k) == 0;
+    const int32_t a = sk[lo];
+    const int32_t b = sk[hi];
+    if (asc ? a > b : b > a) {
+      sk[lo] = b;
+      sk[hi] = a;
+      const V tv = sv[lo]; sv[lo] = sv[hi]; sv[hi] = tv;
+      if (tok) {
+        const int32_t tt = st[lo]; st[lo] = st[hi]; st[hi] = tt;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// A bitonic pass with exchange distance j >= kQ: the partner of run slot
+// g is g ^ j, the same local slot in block rank ^ (j / kQ).  Each thread
+// reads the partners of its own slots, waits until every thread of the
+// cluster has read, then writes only its own slots.
+template <typename V>
+__device__ void cluster_pass(cg::cluster_group& cluster,
+                             unsigned rank, int k, int j, int32_t* sk,
+                             V* sv, int32_t* st, bool tok) {
+  const unsigned prank = rank ^ static_cast<unsigned>(j / kQ);
+  const int32_t* pk = cluster.map_shared_rank(sk, prank);
+  const V* pv = cluster.map_shared_rank(sv, prank);
+  const int32_t* pt = cluster.map_shared_rank(st, prank);
+  int32_t nk[kPer];
+  V nv[kPer];
+  int32_t nt[kPer];
+  bool take[kPer];
+  cluster.sync();                  // the previous pass is written everywhere
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) {
+    const int p = threadIdx.x + t * kCThreads;
+    const int g = static_cast<int>(rank) * kQ + p;
+    const int32_t ka = sk[p];
+    const int32_t kb = pk[p];
+    const bool lower = (g & j) == 0;
+    const bool asc = (g & k) == 0;
+    take[t] = (asc == lower) ? kb < ka : kb > ka;
+    nk[t] = kb;
+    nv[t] = take[t] ? pv[p] : V();
+    nt[t] = (take[t] && tok) ? pt[p] : 0;
+  }
+  cluster.sync();                  // both partners have read
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) {
+    if (take[t]) {
+      const int p = threadIdx.x + t * kCThreads;
+      sk[p] = nk[t];
+      sv[p] = nv[t];
+      if (tok) st[p] = nt[t];
+    }
+  }
+  __syncthreads();
+}
+
+// K5 / K6 at C = kBigC: blocks 4r..4r+3 (one cluster) hold run r.
+template <typename V, int OP>
+__global__ void __launch_bounds__(kCThreads, 1)
+sort_reduce_cluster_kernel(Planes pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int32_t s_prev_key;   // last key of the block before
+  __shared__ int32_t s_next_key;   // first key of the block after
+  __shared__ int s_have;           // a carry from earlier blocks exists
+  __shared__ int32_t s_cf;         // its flag bits
+  __shared__ V s_cv;               // its value
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const bool tok = pl.toks != nullptr;
+  int32_t* sk = reinterpret_cast<int32_t*>(smem);
+  int32_t* f0 = sk + kQ;
+  int32_t* f1 = f0 + kQ;
+  V* v0 = reinterpret_cast<V*>(f1 + kQ);
+  V* v1 = v0 + kQ;
+  const int gbase = static_cast<int>(rank) * kQ;
+  const int64_t base =
+      int64_t(blockIdx.x / kClusterBlocks) * kBigC + gbase;
+  const V* vals = static_cast<const V*>(pl.vals);
+  for (int p = threadIdx.x; p < kQ; p += kCThreads) {
+    sk[p] = pl.keys[base + p];
+    v0[p] = vals[base + p];
+    f0[p] = tok ? pl.toks[base + p] : 0;
+  }
+  __syncthreads();
+  for (int k = 2; k <= kBigC; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j >= kQ) {
+        cluster_pass<V>(cluster, rank, k, j, sk, v0, f0, tok);
+      } else {
+        block_pass<V>(gbase, k, j, sk, v0, f0, tok);
+      }
+    }
+  }
+  cluster.sync();                  // every quarter sorted and visible
+  if (threadIdx.x == 0) {
+    s_prev_key = rank > 0 ? *cluster.map_shared_rank(sk + kQ - 1, rank - 1)
+                          : 0;
+    s_next_key = rank + 1 < kClusterBlocks
+                     ? *cluster.map_shared_rank(sk, rank + 1) : 0;
+  }
+  __syncthreads();
+  // group starts: bit 0; tokens move up one bit
+  for (int p = threadIdx.x; p < kQ; p += kCThreads) {
+    const bool start = p == 0 ? (rank == 0 || sk[0] != s_prev_key)
+                              : sk[p] != sk[p - 1];
+    f0[p] = (f0[p] << 1) | (start ? 1 : 0);
+  }
+  __syncthreads();
+  const auto comb = [](V a, V b) { return Mon<V, OP>::op(a, b); };
+  V* vr;
+  int32_t* fr;
+  segmented_scan<V>(kQ, v0, v1, f0, f1, &vr, &fr, comb);
+  cluster.sync();                  // every block's own scan is done
+  if (threadIdx.x == 0) {
+    // carry = fold of the earlier blocks' scan totals, nearest first, up
+    // to and including the first that holds a group start
+    int have = 0;
+    V cv = V();
+    int32_t cf = 0;
+    for (int q = static_cast<int>(rank) - 1; q >= 0; --q) {
+      const V qv = *cluster.map_shared_rank(vr + kQ - 1, q);
+      const int32_t qf = *cluster.map_shared_rank(fr + kQ - 1, q);
+      cv = have ? comb(qv, cv) : qv;
+      cf |= qf;
+      have = 1;
+      if (qf & 1) break;
+    }
+    s_have = have;
+    s_cv = cv;
+    s_cf = cf;
+  }
+  cluster.sync();                  // all carries read before any fold
+  if (s_have) {
+    // slots before this block's first group start continue the carry's
+    // group (no remote access after the barrier above)
+    for (int p = threadIdx.x; p < kQ; p += kCThreads) {
+      if ((fr[p] & 1) == 0) {
+        vr[p] = comb(s_cv, vr[p]);
+        fr[p] |= s_cf;
+      }
+    }
+    __syncthreads();
+  }
+  V* ovals = static_cast<V*>(pl.ovals);
+  for (int p = threadIdx.x; p < kQ; p += kCThreads) {
+    const int32_t k = sk[p];
+    const bool end = p == kQ - 1
+                         ? (rank + 1 == kClusterBlocks || k != s_next_key)
+                         : k != sk[p + 1];
+    bool keep = end && k != kSentinel;
+    if (tok) {
+      const int32_t t = fr[p] >> 1;
+      keep = keep && (t & 2) != 0 && (t & 1) == pl.want_token;
+    }
+    pl.okeys[base + p] = keep ? k : kSentinel;
+    ovals[base + p] = vr[p];
+  }
+}
+
 int threads_for(int64_t C) {
   const int64_t t = C / 2;
   return static_cast<int>(t < kMaxThreads ? t : kMaxThreads);
@@ -325,9 +525,40 @@ cudaError_t launch_with_smem(K kernel, int64_t nruns, int threads,
   return cudaSuccess;
 }
 
+// C = kBigC: clusters of kClusterBlocks blocks (cudaLaunchKernelEx with
+// the cluster-dimension attribute), 160 KB of dynamic shared memory each.
+template <typename V, int OP>
+cudaError_t launch_cluster(const Planes& pl, int64_t nruns,
+                           cudaStream_t s) {
+  const auto kernel = sort_reduce_cluster_kernel<V, OP>;
+  const size_t smem = size_t(kQ) * (3 * sizeof(int32_t) + 2 * sizeof(V));
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterBlocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(nruns * kClusterBlocks));
+  cfg.blockDim = dim3(kCThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, pl);
+}
+
 template <typename V, int OP>
 cudaError_t launch_sr(const Planes& pl, int64_t nruns, cudaStream_t s) {
   const int64_t C = pl.C;
+  if (C == kBigC) {
+    if (pl.keys2 != nullptr) return cudaErrorInvalidValue;  // no K8 here
+    return launch_cluster<V, OP>(pl, nruns, s);
+  }
+  if (C > kQ) return cudaErrorInvalidValue;
   const size_t smem = size_t(C) * (3 * sizeof(int32_t) +
                                    (pl.keys2 ? sizeof(int32_t) : 0) +
                                    2 * sizeof(V));

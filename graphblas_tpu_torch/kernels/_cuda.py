@@ -25,7 +25,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"spmv": CSRC / "spmv.cu", "sortreduce": CSRC / "sortreduce.cu"}
+SOURCES = {"spmv": CSRC / "spmv.cu", "sortreduce": CSRC / "sortreduce.cu",
+           "permute": CSRC / "permute.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "graphblas_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -107,7 +108,14 @@ def _bind_sortreduce(so) -> None:
     so.gb_sort_pair1.restype = ctypes.c_int
 
 
-_BIND = {"spmv": _bind_spmv, "sortreduce": _bind_sortreduce}
+def _bind_permute(so) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int64
+    so.gb_permute_gather_32.argtypes = [P, P, P, I, P]
+    so.gb_permute_gather_32.restype = ctypes.c_int
+
+
+_BIND = {"spmv": _bind_spmv, "sortreduce": _bind_sortreduce,
+         "permute": _bind_permute}
 
 
 def lib(name: str) -> ctypes.CDLL:
@@ -207,3 +215,13 @@ def sort_pair1(keys, out, C: int, want_token: bool) -> None:
             keys.data_ptr(), out.data_ptr(), keys.numel() // C, C,
             int(bool(want_token)), _stream(dev))
     _check(err, f"sort_pair1<C={C}>", "sortreduce")
+
+
+def permute_gather_32(x, perm, out) -> None:
+    """K9: out[p] = x[perm[p]] over 32-bit elements, on one card."""
+    dev = out.device
+    with torch.cuda.device(dev):
+        err = lib("permute").gb_permute_gather_32(
+            x.data_ptr(), perm.data_ptr(), out.data_ptr(), out.numel(),
+            _stream(dev))
+    _check(err, "permute_gather_32", "permute")

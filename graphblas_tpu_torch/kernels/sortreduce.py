@@ -21,9 +21,13 @@ unspecified.  Pad slots carry SENTINEL keys and are never kept.
   * ``sort_reduce_rows_wide`` K8: lexicographic (key, key2) sort; K5 or K6
 
 Each wrapper launches the CUDA kernel of ``csrc/sortreduce.cu`` for CUDA
-tensors (and counts the launch in ``launches``) and runs its plain torch
-version (``*_plain``) for CPU tensors.  Values are int32 (bool carried as
-0/1 with ``logical=True``) or float32.
+tensors (and counts the launch in ``launches`` and, by C, in
+``launches_by_cap``) and runs its plain torch version (``*_plain``) for
+CPU tensors.  Values are int32 (bool carried as 0/1 with ``logical=True``)
+or float32.  K5 and K6 take every C in ``CAPS``; C = 32768 runs on a
+cluster of four thread blocks (its run does not fit one block's shared
+memory).  K7 and K8 take C <= 8192 (``CAPS_ONE_BLOCK``): no caller uses
+them at 32768 in either package.
 """
 
 from __future__ import annotations
@@ -34,12 +38,29 @@ from . import _cuda
 from . import segment as K
 
 SENTINEL = 2**31 - 1
-# C the CUDA kernels take (all below 2^20, where K7 keeps its twin bit)
-CAPS = (128, 512, 2048, 8192)
+# C the CUDA kernels take: the run classes of the JAX package
+CAPS = (128, 512, 2048, 8192, 32768)
+# C whose run fits one thread block (K7 and K8; all below 2^20, where K7
+# keeps its twin bit)
+CAPS_ONE_BLOCK = (128, 512, 2048, 8192)
 
-# launches of the CUDA kernels (CPU calls run the plain versions, uncounted)
+# launches of the CUDA kernels (CPU calls run the plain versions,
+# uncounted), in total and by (wrapper name, C)
 launches = {"sort_reduce_rows": 0, "sort_reduce_rows_tok": 0,
             "sort_reduce_pair1": 0, "sort_reduce_rows_wide": 0}
+launches_by_cap: dict = {}
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    for k in launches:
+        launches[k] = 0
+    launches_by_cap.clear()
+
+
+def _count(name: str, C: int) -> None:
+    launches[name] += 1
+    launches_by_cap[(name, C)] = launches_by_cap.get((name, C), 0) + 1
 
 # monoid name -> kernel op, for value planes and for bool carried in int32
 _OPS = {"GrB_PLUS": "plus", "GrB_TIMES": "times", "GrB_MIN": "min",
@@ -166,10 +187,10 @@ def sort_reduce_pair1_plain(keys, C, *, want_token=True):
 # wrappers: CUDA kernel on CUDA tensors, plain version on CPU tensors
 # ---------------------------------------------------------------------------
 
-def _cap(C) -> int:
+def _cap(C, caps=CAPS) -> int:
     C = int(C)
-    if C not in CAPS:
-        raise ValueError(f"sort-reduce: C={C} not in {CAPS}")
+    if C not in caps:
+        raise ValueError(f"sort-reduce: C={C} not in {caps}")
     return C
 
 
@@ -210,7 +231,7 @@ def sort_reduce_rows(keys, vals, C, monoid, *, logical=False):
     op = _check(C, keys, [], vals, logical, monoid)
     ok, _, ov = _outputs(keys, vals)
     _cuda.sort_reduce(keys, None, vals, None, ok, None, ov, C, op, True)
-    launches["sort_reduce_rows"] += 1
+    _count("sort_reduce_rows", C)
     return ok, ov
 
 
@@ -226,15 +247,15 @@ def sort_reduce_rows_tok(keys, vals, toks, C, monoid, *, want_token=True,
     ok, _, ov = _outputs(keys, vals)
     _cuda.sort_reduce(keys, None, vals, toks, ok, None, ov, C, op,
                       want_token)
-    launches["sort_reduce_rows_tok"] += 1
+    _count("sort_reduce_rows_tok", C)
     return ok, ov
 
 
 def sort_reduce_rows_wide(keysh, keysl, vals, C, monoid, *, toks=None,
                           want_token=True, logical=False):
     """K8: lexicographic (keysh, keysl) sort-reduce, with or without the
-    token plane; returns (okeysh, okeysl, ovals)."""
-    C = _cap(C)
+    token plane; returns (okeysh, okeysl, ovals).  C <= 8192."""
+    C = _cap(C, CAPS_ONE_BLOCK)
     if not keysh.is_cuda:
         return sort_reduce_rows_wide_plain(keysh, keysl, vals, C, monoid,
                                            toks=toks, want_token=want_token,
@@ -244,18 +265,19 @@ def sort_reduce_rows_wide(keysh, keysl, vals, C, monoid, *, toks=None,
     okh, okl, ov = _outputs(keysh, vals, wide=True)
     _cuda.sort_reduce(keysh, keysl, vals, toks, okh, okl, ov, C, op,
                       want_token)
-    launches["sort_reduce_rows_wide"] += 1
+    _count("sort_reduce_rows_wide", C)
     return okh, okl, ov
 
 
 def sort_reduce_pair1(keys, C, *, want_token=True):
-    """K7: per-slot product counts of kept groups (0 elsewhere)."""
-    C = _cap(C)
+    """K7: per-slot product counts of kept groups (0 elsewhere).
+    C <= 8192."""
+    C = _cap(C, CAPS_ONE_BLOCK)
     if not keys.is_cuda:
         return sort_reduce_pair1_plain(keys, C, want_token=want_token)
     _check(C, keys, [])
     out = torch.empty_like(keys)
     _cuda.sort_pair1(keys, out, C, want_token)
-    launches["sort_reduce_pair1"] += 1
+    _count("sort_reduce_pair1", C)
     return out
 

@@ -14,13 +14,15 @@ gather.  Hopper gathers natively and has fp64 units, so the port's plan
 is only what balances the work: a partition of the rows into blocks of
 about equal nonzero count, with rows longer than ``row_cap`` split into
 sub-rows whose partial results land in ``y[m:m_sub]`` and are folded back
-into their ``extra_owner`` row by the wrapper (``index_add_`` for plus,
-``scatter_reduce_`` amin/amax for min/max), as the JAX wrapper folds its
-extras outside the kernel.  One CUDA template, ``spmv_planned<T, ADD,
-MUL>`` in ``csrc/spmv.cu``, serves all three entry points (16
-instantiations).  It is bound by device-memory bytes (~12 B per nonzero
-plus the x gather, 8 B more in fp64): coalesced loads of the CSR arrays,
-x through the read-only path, one warp per sub-row, reduce in registers.
+into their ``extra_owner`` row by the wrapper, as the JAX wrapper folds its
+extras outside the kernel.  The fold is bitwise reproducible: each
+owner's extras are gathered through a padded (owners, max extras) table
+and reduced along it in one pass, with no atomics.  One CUDA template,
+``spmv_planned<T, ADD, MUL>`` in ``csrc/spmv.cu``, serves all three entry
+points (16 instantiations).  It is bound by device-memory bytes (~12 B
+per nonzero plus the x gather, 8 B more in fp64): coalesced loads of the
+CSR arrays, x through the read-only path, one warp per sub-row, reduce in
+registers.
 
 Each entry point launches the kernel for CUDA tensors and runs the plain
 torch version, which walks the same plan (blocks, sub-rows,
@@ -89,6 +91,15 @@ class SpmvRoutePlan:
     indptr: torch.Tensor | None = None
     indices: torch.Tensor | None = None
     values: torch.Tensor | None = None
+    # the fold of the extras, derived from extra_owner (_fold_table)
+    fold_owner: torch.Tensor | None = dataclasses.field(init=False,
+                                                        default=None)
+    fold_table: torch.Tensor | None = dataclasses.field(init=False,
+                                                        default=None)
+
+    def __post_init__(self):
+        if self.extra_owner is not None:
+            self.fold_owner, self.fold_table = _fold_table(self.extra_owner)
 
     @property
     def nblocks(self) -> int:
@@ -119,6 +130,25 @@ class SpmvRoutePlan:
             block_ptr=self.block_ptr.to(dev),
             extra_owner=None if eo is None else eo.to(dev),
             indptr=indptr, indices=indices, values=values)
+
+
+def _fold_table(owner):
+    """(owners, table): the rows that own extra sub-rows, ascending, and
+    per owner the positions of its extras in y_sub[m:], padded to the
+    longest list with k = owner.numel(), the slot that holds the add
+    identity in ``_fold_extras``."""
+    k = owner.numel()
+    dev = owner.device
+    order = torch.argsort(owner, stable=True)
+    owners, cnt = torch.unique_consecutive(owner[order], return_counts=True)
+    first = torch.cumsum(cnt, 0) - cnt
+    col = torch.arange(k, device=dev) - torch.repeat_interleave(first, cnt)
+    row = torch.repeat_interleave(torch.arange(owners.numel(), device=dev),
+                                  cnt)
+    table = torch.full((owners.numel(), int(cnt.max())), k,
+                       dtype=torch.int64, device=dev)
+    table[row, col] = order
+    return owners, table
 
 
 def build_plan(indptr, indices, values, shape, row_cap: int = ROW_CAP,
@@ -294,17 +324,25 @@ def spmv_planned_plain(x, plan: SpmvRoutePlan, add: str,
 
 
 def _fold_extras(y_sub, plan: SpmvRoutePlan, add: str) -> torch.Tensor:
-    """y = y_sub[:m] with each extra sub-row folded into its owner row."""
+    """y = y_sub[:m] with each extra sub-row folded into its owner row:
+    the owner's extras, gathered through ``plan.fold_table`` (pads read
+    the identity), reduce along the table's rows, then combine with the
+    owner's first chunk.  No atomics, so the order is fixed."""
     y = y_sub[:plan.m]
     if plan.extra_owner is None:
         return y
+    ext = torch.cat([y_sub[plan.m:plan.m_sub],
+                     y_sub.new_full((1,), MONOID_IDENTITY[add])])
+    g = ext[plan.fold_table]
+    own = plan.fold_owner
     y = y.clone()
-    extra = y_sub[plan.m:plan.m_sub]
     if add == "plus":
-        return y.index_add_(0, plan.extra_owner, extra)
-    return y.scatter_reduce_(0, plan.extra_owner, extra,
-                             "amin" if add == "min" else "amax",
-                             include_self=True)
+        y[own] = y[own] + g.sum(1)
+    elif add == "min":
+        y[own] = torch.minimum(y[own], g.amin(1))
+    else:
+        y[own] = torch.maximum(y[own], g.amax(1))
+    return y
 
 
 def _planned(x, plan: SpmvRoutePlan, add: str, mul: str, dtype,

@@ -531,7 +531,8 @@ def _flop_count(a_cols, b_indptr):
 def _spgemm_esc(A, B, sr, zt, mask, desc, accum,
                 relabel=_ident_relabel) -> Matrix:
     """Marks results of sparse/hyper-masked runs: every internal path
-    (SELL in-sort tokens, classic prefilter) applies such masks exactly,
+    (SELL's and the fast tier's in-sort tokens, the classic prefilter)
+    applies such masks exactly,
     so mxm/mxv/vxm transplant instead of re-masking in writeback."""
     out = _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum, relabel)
     if mask is not None and mask.fmt in (SPARSE, HYPER):
@@ -567,13 +568,18 @@ def _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum,
     """Expand-sort-compress SpGEMM.
 
     Phase 0 (flop count, one host sync): F = sum over A entries of
-    |B(k,:)|.  Tier choice by predicate: the SELL engine
-    (ops/spgemm_sell.py) when the semiring, type and monoid have a
-    sort-reduce kernel, else the classic path here, whose row blocks of
-    at most SPGEMM_FLOP_BLOCK products keep peak memory O(block): expand
-    products (searchsorted on the cumulative flop array), prefilter by a
-    sparse mask (the dot3 analog), sort the int64 (i, j) keys and reduce
-    each group under the add monoid."""
+    |B(k,:)|.  Tier choice, as in the JAX package: the SELL engine
+    (ops/spgemm_sell.py) when the ``spgemm_tier`` option is "sell" and
+    the semiring, type and monoid have a sort-reduce kernel; when SELL is
+    skipped or declines (its int32 slot domain), the fast tier
+    (ops/spgemm_fast.py) for the same semirings and types, else the
+    classic path here, whose row blocks of at most SPGEMM_FLOP_BLOCK
+    products keep peak memory O(block): expand products (searchsorted on
+    the cumulative flop array), prefilter by a sparse mask (the dot3
+    analog), sort the int64 (i, j) keys and reduce each group under the
+    add monoid.  The fused reduce (``reduce_scalar``) exists on SELL
+    only; elsewhere it returns None and the caller runs mxm + reduce."""
+    from . import spgemm_fast as SGF
     from . import spgemm_sell as SGS
     Ar = A.to_format(SPARSE, ROW)
     Br = B.to_format(SPARSE, ROW)
@@ -615,17 +621,24 @@ def _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum,
         return counts, uvec.long(), uidx, cv
 
     why = SGS.ineligible(sr, zt, n)
-    if why is None:
-        ip_h = Ar.indptr.cpu().numpy().astype(np.int64)
+    tier = CFG.GLOBAL.spgemm_tier
+    ip_h = Ar.indptr.cpu().numpy().astype(np.int64)
+    if tier == "sell" and why is None:
         T_ = SGS.spgemm_sell(Ar, Br, ip_h, sr, zt, m, n, mask, desc,
                              classic_rows, reduce_scalar=reduce_scalar)
         if T_ is not None:
             return T_
-        why = "slot domain"
-    CFG.burble("spgemm: classic ESC (SELL declined: %s)", why)
+        CFG.burble("spgemm: SELL declined (slot domain)")
     if reduce_scalar:
         return None          # no fused path; the caller runs mxm + reduce
     row_cum_h = row_cum.cpu().numpy()
+    if SGF.eligible(sr, zt, n):
+        CFG.burble("spgemm: fast sort-reduce tier (tier=%s), %d flops",
+                   tier, F)
+        return SGF.spgemm_esc_fast(Ar, Br, cumf, ip_h, row_cum_h, sr, zt, m,
+                                   n, mask, desc, classic_rows,
+                                   SPGEMM_FLOP_BLOCK)
+    CFG.burble("spgemm: classic ESC (%s)", why)
     cut = _row_blocks(np.diff(row_cum_h))
     CFG.burble("spgemm: %d row blocks", len(cut) - 1)
     parts = []

@@ -56,6 +56,13 @@ NMAX = (1 << JB) - 1       # n at or above this needs the wide key planes
 LOW32 = (1 << 32) - 1
 WSENT = 1 << 62            # wide-mode packed-key sentinel (sorts last)
 SENT = SRD.SENTINEL
+# SELL declines a product (the caller then takes the fast tier or the
+# classic path) when B's table holds MAX_TABLE_SEGS segments or more, or
+# when the padded slot domain reaches MAX_SLOTS or the table plus the mask
+# MAX_SEGS segments: int32 slot and payload bounds, as in the JAX engine
+MAX_TABLE_SEGS = 1 << 27
+MAX_SLOTS = 1 << 31
+MAX_SEGS = 1 << 30
 
 # value types carried by the kernels: (kernel value dtype, bool carried)
 KDT = {
@@ -204,7 +211,7 @@ def _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt):
     meta = torch.cat(meta).cpu().numpy()             # ONE packed D2H
     nsegB_tot = int(meta[0])
     row_nseg_h = meta[1:1 + m]
-    if nsegB_tot >= (1 << 27):
+    if nsegB_tot >= MAX_TABLE_SEGS:
         CFG.burble("spgemm-sell: B table too large (%d segments)",
                    nsegB_tot)
         return None
@@ -263,7 +270,7 @@ def _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt):
     starts_h, rank_h, br0, be0, bt0, bs0 = NAT.spgemm_layout(
         row_load_h, np.diff(ip_h), tok_h, TILE // SEGW, S8, E_BLK, R_BLK)
     D_pad = int(starts_h[m]) * SEGW
-    if D_pad >= (1 << 31) or nsegB_tot + nsegM_tot >= (1 << 30):
+    if D_pad >= MAX_SLOTS or nsegB_tot + nsegM_tot >= MAX_SEGS:
         CFG.burble("spgemm-sell: slot domain beyond int32 (%d slots)",
                    D_pad)
         return None

@@ -1,7 +1,7 @@
 """Inputs and comparisons for holding the sort-reduce kernels (K5-K8,
-kernels/sortreduce.py) against their plain versions.  Used by
-chip_smoke.py and tests/test_torch_cuda.py; numpy only, nothing here
-launches a kernel."""
+kernels/sortreduce.py) against their plain versions, and the RMAT graph
+generator of the benchmarks.  Used by chip_smoke.py and
+tests/test_torch_cuda.py; numpy only, nothing here launches a kernel."""
 
 from __future__ import annotations
 
@@ -10,6 +10,27 @@ import numpy as np
 from .kernels.sortreduce import SENTINEL
 
 FP32_TOL = 1e-5   # fp32 plus totals: the order of the sum differs
+
+
+def rmat_edges(scale, edge_factor, rng, a=0.57, b=0.19, c=0.19):
+    """Graph500 RMAT edges (a/b/c/d = 0.57/0.19/0.19/0.05): one quadrant
+    draw per bit level for all edges, then a random relabelling of the
+    vertices.  Returns (rows, cols, n) with duplicates and self loops
+    kept; the same draws from ``rng`` as bench_real.py's generator."""
+    n = 1 << scale
+    ne = n * edge_factor
+    rows = np.zeros(ne, np.int64)
+    cols = np.zeros(ne, np.int64)
+    ab, abc = a + b, a + b + c
+    for lvl in range(scale):
+        r = rng.random(ne)
+        right = (r >= a) & (r < ab)          # column bit set
+        down = (r >= ab) & (r < abc)         # row bit set
+        both = r >= abc
+        rows |= (down | both).astype(np.int64) << lvl
+        cols |= (right | both).astype(np.int64) << lvl
+    perm = rng.permutation(n)
+    return perm[rows], perm[cols], n
 
 
 def sr_runs(rng, C, runs=64, hi=40):

@@ -188,8 +188,10 @@ def test_import_brings_no_jax():
             "import graphblas_tpu_torch, graphblas_tpu_torch.algorithms, "
             "graphblas_tpu_torch.entry, graphblas_tpu_torch.interop, "
             "graphblas_tpu_torch.ops.spgemm_sell, "
+            "graphblas_tpu_torch.ops.spgemm_fast, "
             "graphblas_tpu_torch.ops.select, "
             "graphblas_tpu_torch.kernels.sortreduce, "
+            "graphblas_tpu_torch.kernels.static_route, "
             "graphblas_tpu_torch.utils.native, "
             "graphblas_tpu_torch.utils.tensor_cache, "
             "graphblas_tpu_torch.testing; "
@@ -200,3 +202,32 @@ def test_import_brings_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_chip_smoke_import_brings_no_jax():
+    """chip_smoke.py runs its phases under ``__main__`` only: importing it
+    loads neither JAX, the JAX package nor bench_real.py (a JAX-era
+    script); its graphs come from the port's own generator."""
+    code = ("import sys; before = set(sys.modules); import chip_smoke; "
+            "new = set(sys.modules) - before; "
+            "bad = sorted(m for m in new if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'graphblas_tpu', 'bench_real')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        assert "bench_real" not in f.read().replace("bench_real.py", "")
+
+
+@pytest.mark.parametrize("seed", [7, 1])
+def test_rmat_edges_matches_bench_real(seed):
+    """The port's copy of the RMAT generator draws the same graph as
+    bench_real.py's (scale 10, edge factor 16)."""
+    import bench_real
+    from graphblas_tpu_torch.testing import rmat_edges
+    want = bench_real.rmat_edges(10, 16, np.random.default_rng(seed))
+    got = rmat_edges(10, 16, np.random.default_rng(seed))
+    assert got[2] == want[2] == 1 << 10
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])

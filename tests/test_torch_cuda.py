@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (SpMV K1-K4, sort-reduce K5-K8) against their
-plain torch versions, on a card.
+"""The port's CUDA kernels (SpMV K1-K4, sort-reduce K5-K8, the
+gather-permute K9) against their plain torch versions, on a card.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -19,6 +19,7 @@ from graphblas_tpu_torch.core import monoid as TM
 from graphblas_tpu_torch.kernels import sortreduce as SRD
 from graphblas_tpu_torch.kernels import spmv_onehot as OH
 from graphblas_tpu_torch.kernels import spmv_route as SPR
+from graphblas_tpu_torch.kernels import static_route as STR
 
 pytestmark = pytest.mark.cuda
 
@@ -176,3 +177,78 @@ def test_sort_reduce_wrappers_refuse_bad_operands(cuda_device):
         SRD.sort_reduce_rows(keys[:3000], torch.zeros(3000,
                                                       device=cuda_device),
                              2048, TM.PLUS)
+
+
+@pytest.mark.parametrize("kind,mon", [("i32", "PLUS"), ("f32", "PLUS"),
+                                      ("f32", "MIN"), ("bool", "LOR"),
+                                      ("i32", "MAX")])
+def test_sort_reduce_cluster_matches_plain(cuda_device, kind, mon):
+    """K5 and K6 at C = 32768 (a cluster of four blocks per run): run 2
+    repeats one key over all 32768 slots, so the scan's carry crosses
+    every block."""
+    C = 32768
+    rng = np.random.default_rng(len(kind) + len(mon))
+    t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    keys = GT.sr_runs(rng, C, runs=6)
+    vals = GT.sr_values(rng, keys.size, kind)
+    args = (t(keys), t(vals), C, getattr(TM, mon))
+    kw = {"logical": kind == "bool"}
+    before = SRD.launches_by_cap.get(("sort_reduce_rows", C), 0)
+    got = SRD.sort_reduce_rows(*args, **kw)
+    torch.cuda.synchronize()
+    assert SRD.launches_by_cap[("sort_reduce_rows", C)] == before + 1
+    GT.sr_err(got, SRD.sort_reduce_rows_plain(*args, **kw),
+              _exact(kind, mon))
+    toks = t(GT.sr_tokens(rng, keys, C))
+    for want in (True, False):
+        a2 = args[:2] + (toks,) + args[2:]
+        got = SRD.sort_reduce_rows_tok(*a2, want_token=want, **kw)
+        torch.cuda.synchronize()
+        GT.sr_err(got, SRD.sort_reduce_rows_tok_plain(*a2, want_token=want,
+                                                      **kw),
+                  _exact(kind, mon))
+
+
+def test_sort_reduce_cluster_refuses_k7_k8(cuda_device):
+    keys = torch.full((32768,), SENT, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        SRD.sort_reduce_pair1(keys, 32768)
+    with pytest.raises(ValueError):
+        SRD.sort_reduce_rows_wide(keys, keys, torch.zeros_like(keys), 32768,
+                                  TM.PLUS)
+
+
+@pytest.mark.parametrize("n,dtype", [((1 << 20) + 3, torch.float32),
+                                     (4097, torch.int32)])
+def test_permute_gather_matches_plain(cuda_device, n, dtype):
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)) \
+        .to(dtype).to(cuda_device)
+    plan = STR.GlobalPermutePlan(torch.from_numpy(rng.permutation(n))
+                                 .to(cuda_device), n)
+    before = STR.launches
+    got = STR.global_permute(x, plan)
+    torch.cuda.synchronize()
+    assert STR.launches == before + 1
+    assert torch.equal(got, STR.permute_plain(x, plan.perm))
+    R = 32
+    tile = x[:R * 128].reshape(R, 128).contiguous()
+    pc = np.stack([rng.permutation(R) for _ in range(128)])
+    want = np.take_along_axis(tile.cpu().numpy().T, pc, 1).T
+    assert np.array_equal(STR.sublane_permute(tile, pc).cpu().numpy(), want)
+    perm = rng.permutation(R * 128)
+    assert np.array_equal(STR.tile_permute(tile, perm).cpu().numpy(),
+                          tile.cpu().numpy().reshape(-1)[perm].reshape(R,
+                                                                       128))
+
+
+def test_fold_is_bitwise_repeatable(cuda_device):
+    """The planned SpMV folds split rows without atomics: two calls give
+    the same bits."""
+    S, ip, ix, v, x = _skewed(np.random.default_rng(4), np.float32,
+                              cuda_device)
+    p = SPR.build_plan(ip, ix, v, S.shape, row_cap=16, block_cost=64)
+    for add, mul in (("plus", "times"), ("min", "plus")):
+        a = SPR.spmv_route_monoid(x, p, add=add, mul=mul)
+        b = SPR.spmv_route_monoid(x, p, add=add, mul=mul)
+        assert torch.equal(a, b)

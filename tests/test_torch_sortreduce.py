@@ -1,6 +1,7 @@
 """Port parity: the plain versions of the sort-reduce kernels K5-K8
 (graphblas_tpu_torch.kernels.sortreduce) against the JAX package's
-Pallas kernels run in interpret mode, at C in {128, 512, 2048}.
+Pallas kernels run in interpret mode, at C in {128, 512, 2048}, and K5/K6
+at C = 32768 (the fast tier's top class) against a numpy sort-and-group.
 
 Inputs (numpy, from a seed): runs with many duplicate keys, empty
 (all-SENTINEL) runs, full runs and partly filled runs.  Only kept slots
@@ -161,6 +162,66 @@ def test_sort_reduce_rows_wide_matches(C, kind, mon, tok, want):
     _check(okh_j, ov_j, okh_t, ov_t, kind, mon, okl_j, okl_t)
 
 
+def _numpy_sort_reduce(keys, vals, C, ufunc, toks=None, want=True):
+    """Per run: the sorted unique keys that are kept and their totals
+    (fp32 plus summed in fp64)."""
+    out = []
+    for r in range(keys.size // C):
+        k, v = keys[r * C:(r + 1) * C], vals[r * C:(r + 1) * C]
+        u, inv = np.unique(k, return_inverse=True)
+        acc = np.full(u.size, np.nan)
+        for g in range(u.size):           # few groups: hi = 40
+            acc[g] = ufunc.reduce(v[inv == g].astype(np.float64))
+        keep = u != SENT
+        if toks is not None:
+            t = toks[r * C:(r + 1) * C]
+            has_tok = np.array([(t[inv == g] == 1).any()
+                                for g in range(u.size)])
+            has_prod = np.array([(t[inv == g] == 2).any()
+                                 for g in range(u.size)])
+            keep &= has_prod & (has_tok == want)
+        out.append((u[keep], acc[keep]))
+    return out
+
+
+@pytest.mark.parametrize("kind,mon,tok", [("f32", "PLUS", False),
+                                          ("i32", "MIN", True),
+                                          ("bool", "LOR", True)])
+def test_sort_reduce_plain_at_32768(kind, mon, tok):
+    """K5 / K6 plain versions at C = 32768: run 1 full, run 2 one key over
+    the whole run, the rest partly filled."""
+    from graphblas_tpu_torch import testing as GT
+    C = 32768
+    rng = np.random.default_rng(len(kind) + 3 * tok)
+    keys = GT.sr_runs(rng, C, runs=4)
+    vals = GT.sr_values(rng, keys.size, kind)
+    toks = GT.sr_tokens(rng, keys, C) if tok else None
+    logical = kind == "bool"
+    args = (torch.from_numpy(keys), torch.from_numpy(vals))
+    if tok:
+        ok, ov = SRD.sort_reduce_rows_tok(*args, torch.from_numpy(toks), C,
+                                          getattr(TM, mon), want_token=True,
+                                          logical=logical)
+    else:
+        ok, ov = SRD.sort_reduce_rows(*args, C, getattr(TM, mon),
+                                      logical=logical)
+    ufunc = {"PLUS": np.add, "MIN": np.minimum, "LOR": np.logical_or}[mon]
+    want = _numpy_sort_reduce(keys, vals, C, ufunc, toks)
+    ok, ov = ok.numpy(), ov.numpy()
+    for r, (u, tot) in enumerate(want):
+        k = ok[r * C:(r + 1) * C]
+        kept = k != SENT
+        np.testing.assert_array_equal(k[kept], u)
+        got = ov[r * C:(r + 1) * C][kept].astype(np.float64)
+        if kind == "f32":
+            assert np.abs(got - tot).max(initial=0) <= \
+                FP32_TOL * np.abs(tot).max(initial=0)
+        else:
+            np.testing.assert_array_equal(got, tot.astype(got.dtype))
+    if not tok:                                     # one key, one group
+        assert (ok[2 * C:3 * C] != SENT).sum() == 1
+
+
 def test_wrappers_refuse_bad_capacity():
     keys = torch.full((96,), SENT, dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -168,3 +229,7 @@ def test_wrappers_refuse_bad_capacity():
     with pytest.raises(ValueError):
         SRD.sort_reduce_pair1(torch.full((32768,), SENT, dtype=torch.int32),
                               32768)
+    big = torch.full((32768,), SENT, dtype=torch.int32)
+    with pytest.raises(ValueError):         # K8 takes C <= 8192 only
+        SRD.sort_reduce_rows_wide(big, big, torch.zeros(32768), 32768,
+                                  TM.PLUS)

@@ -165,6 +165,50 @@ def test_spmv_arrays_tiers(xla_path):
     _check(y_torch, y_rowwarp, "plus", 1e-5)
 
 
+@pytest.mark.parametrize("add", ADDS)
+def test_split_rows_fold_without_atomics(add):
+    """Hub rows split into many sub-rows fold through the owner table:
+    the same result as the index_add_ / scatter_reduce_ fold it replaced
+    and as a per-row numpy reduce, and the same bits on every call."""
+    rng = np.random.default_rng(41)
+    deg = rng.integers(0, 5, 200)
+    deg[[3, 50, 51, 199]] = (900, 2000, 40, 1333)        # 4 hubs, 1 short
+    rows = np.repeat(np.arange(200), deg)
+    S = sps.csr_matrix((rng.standard_normal(rows.size).astype(np.float32),
+                        (rows, rng.integers(0, 5000, rows.size))),
+                       shape=(200, 5000))
+    S.sum_duplicates()
+    ip, ix, v = (torch.from_numpy(a) for a in
+                 (S.indptr.astype(np.int32), S.indices.astype(np.int32),
+                  S.data))
+    p = SPR.build_plan(ip, ix, v, S.shape, row_cap=16, block_cost=64)
+    assert p.fold_table.shape[0] == 4 and p.fold_table.shape[1] > 100
+    x = torch.from_numpy(rng.standard_normal(5000).astype(np.float32))
+    y_sub = SPR.spmv_planned_plain(x, p, add, "times")
+    y = SPR._fold_extras(y_sub, p, add)
+    assert torch.equal(y, SPR._fold_extras(y_sub, p, add))
+    assert torch.equal(y, SPR.spmv_route_monoid(x, p, add=add, mul="times"))
+    old = y_sub[:p.m].clone()                 # the atomic fold it replaced
+    extra = y_sub[p.m:p.m_sub]
+    if add == "plus":
+        old.index_add_(0, p.extra_owner, extra)
+    else:
+        old.scatter_reduce_(0, p.extra_owner, extra,
+                            "amin" if add == "min" else "amax")
+    prod = S.multiply(x.numpy()[None, :]).tocsr()
+    ufunc = {"plus": np.add, "min": np.minimum, "max": np.maximum}[add]
+    ref = np.array([ufunc.reduce(prod.data[a:b].astype(np.float64))
+                    if b > a else SPR.MONOID_IDENTITY[add]
+                    for a, b in zip(prod.indptr[:-1], prod.indptr[1:])])
+    if add == "plus":
+        tol = 1e-5 * np.abs(ref).max()
+        assert np.abs(y.numpy() - ref).max() <= tol
+        assert np.abs(y.numpy() - old.numpy()).max() <= tol
+    else:
+        np.testing.assert_array_equal(y.numpy(), old.numpy())
+        np.testing.assert_array_equal(y.numpy(), ref.astype(np.float32))
+
+
 def test_plan_save_load_and_optimize(tmp_path):
     rng = np.random.default_rng(5)
     S = random_csr(rng, 120, 90, 0.05)
