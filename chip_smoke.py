@@ -47,14 +47,14 @@ Phases, each printing one line (more for the per-graph phases):
      triangle_count (b), with the SELL phases timed on the host, then
      under torch.profiler (device busy share, device time by operator
      and by kernel);
- 11. the fast SpGEMM tier (spgemm_tier "v1") at full size, the launch
-     counts set to 0 before and read after: (a) A*A (nnz, sampled rows,
-     checksum as in phase 7) and triangle_count = 647, RMAT-18
-     triangle_count = 19,595,360 and RMAT-18 A*A (nnz 1,278,009,346,
-     4096 sampled rows exact, checksum); rows and padded slots per sort
-     class and the fallback rows; K5 launched at every C in (128 ...
-     32768) and K6 at 32768; wall times cold and warm; one warm RMAT-18
-     A*A traced as in phase 10;
+ 11. the fast SpGEMM tier at full size, which takes the products SELL
+     declines (RMAT-18's A*A, 2.9e9 products: a slot domain beyond
+     int32), the launch counts set to 0 before and read after: RMAT-18
+     A*A (nnz 1,278,009,346, 4096 sampled rows exact, checksum) and C<A>
+     = A*A (structural mask; equal to A*A on A's pattern, sampled rows
+     exact); rows and padded slots per sort class and the fallback rows;
+     K5 launched at every C in (128 ... 32768) and K6 at 32768; wall
+     times cold and warm; one warm RMAT-18 A*A traced as in phase 10;
  12. K5 and K6 at C = 32768 and their plain versions on the fast tier's
      first inputs at that C, beside the bound of their bytes;
  13. K9: global_permute of graph (a)'s CSR -> CSC value permutation
@@ -698,7 +698,8 @@ def check_product(C, S, rng, cnnz, what):
 
 
 def with_burble(fn):
-    """fn() with burble on: (its result, its spgemm-fast lines)."""
+    """fn() with burble on: (its result, its spgemm-fast lines and the
+    lines of SELL's decline)."""
     import graphblas_tpu_torch as gt
     msgs = []
     gt.set_option("printf", msgs.append)
@@ -707,77 +708,93 @@ def with_burble(fn):
         out = fn()
     finally:
         gt.set_option("burble", False)
-    return out, [m[5:] for m in msgs if "spgemm-fast:" in m]
+    return out, [m[5:] for m in msgs
+                 if "spgemm-fast:" in m or "SELL declined" in m
+                 or "slot domain beyond" in m]
+
+
+def csr_keys(M):
+    """row * ncols + column of every entry of a port CSR matrix on the
+    card (int64, ascending for sorted rows)."""
+    import torch
+    ip = M.indptr.long()
+    k = torch.repeat_interleave(
+        torch.arange(M.nrows, device=ip.device), ip.diff(),
+        output_size=int(M.indices.numel()))
+    return k.mul_(M.ncols).add_(M.indices)
+
+
+def assert_restriction(Cm, C, A):
+    """Cm equals C restricted to A's pattern: the same entries, the same
+    values (bitwise), compared on the card."""
+    import torch
+    ck = csr_keys(C)
+    ak = csr_keys(A)
+    pos = torch.searchsorted(ck, ak).clamp_(max=ck.numel() - 1)
+    hit = ck[pos] == ak
+    del ck
+    assert torch.equal(csr_keys(Cm), ak[hit]), "C<A> pattern"
+    assert torch.equal(Cm.values, C.values[pos[hit]]), "C<A> values"
 
 
 def fast_tier_path(rng, card):
-    """Phase 11: the fast SpGEMM tier at full size (spgemm_tier "v1"),
-    the sort-reduce launch counts set to 0 before and read after: A*A and
-    triangle_count at graph (a), triangle_count and A*A at RMAT-18, each
-    against the compiled SuiteSparse's answer; then one warm RMAT-18 A*A
-    traced.  Returns (wall times, recorder, launches by (wrapper, C))."""
+    """Phase 11: the fast SpGEMM tier at full size.  RMAT-18's A*A has
+    2.9e9 products, a slot domain beyond SELL's int32 limit, so SELL
+    declines it and the fast tier computes it, as in the JAX package.
+    The sort-reduce launch counts are set to 0 before and read after.
+    C = A*A: nnz against the compiled SuiteSparse's answer, 4096 sampled
+    rows exact against scipy, fp64 checksum; C<A> = A*A (structural mask,
+    K6): equal on the card to A*A restricted to A's pattern, and 4096
+    sampled rows exact.  Then one warm A*A traced.  Returns (wall times,
+    recorder, launches by (wrapper, C))."""
     import graphblas_tpu_torch as gt
     from graphblas_tpu_torch.core import semiring as SR
     from graphblas_tpu_torch.kernels import sortreduce as SRD
     wall = {}
-    old = gt.get_option("spgemm_tier")
-    gt.set_option("spgemm_tier", "v1")
-    try:
-        SRD.reset_launches()
-        with Recorder(caps=(BIG_C,)) as rec:
-            S = bench_graph()
-            A = gt.Matrix.from_scipy(S, device="cuda")
-            (C, lines), wall["fast_spgemm_a_cold"] = timed(
-                lambda: with_burble(lambda: gt.mxm(A, A, SR.PLUS_TIMES)))
-            csum = check_product(C, S, rng, UNIFORM_CNNZ, "fast A*A (a)")
-            del C
-            C, wall["fast_spgemm_a_warm"] = timed(
-                lambda: gt.mxm(A, A, SR.PLUS_TIMES))
-            assert C.nvals == UNIFORM_CNNZ
-            del C
-            for k in ("fast_tc_a_cold", "fast_tc_a_warm"):
-                ntri, wall[k] = timed(lambda: gt.triangle_count(A))
-                assert ntri == UNIFORM_NTRI, ntri
-            print(f"[11 fast tier a] cnnz={UNIFORM_CNNZ} sampled_rows=4096 "
-                  f"exact checksum={csum:.0f} ntri={ntri} | "
-                  + "; ".join(lines), flush=True)
-            del A
-            S18 = rmat_graph(18)
-            A18 = gt.Matrix.from_scipy(S18, device="cuda")
-            (ntri, lines), wall["fast_tc_b_cold"] = timed(
-                lambda: with_burble(lambda: gt.triangle_count(A18)))
-            assert ntri == RMAT18_NTRI, ntri
-            ntri, wall["fast_tc_b_warm"] = timed(
-                lambda: gt.triangle_count(A18))
-            assert ntri == RMAT18_NTRI, ntri
-            print(f"[11 fast tier b] RMAT-18 ntri={ntri} | "
-                  + "; ".join(lines), flush=True)
-            (C, lines), wall["fast_spgemm_b_cold"] = timed(
-                lambda: with_burble(lambda: gt.mxm(A18, A18,
-                                                   SR.PLUS_TIMES)))
-            csum = check_product(C, S18, rng, RMAT18_CNNZ,
-                                 "fast A*A RMAT-18")
-            del C
-            C, wall["fast_spgemm_b_warm"] = timed(
-                lambda: gt.mxm(A18, A18, SR.PLUS_TIMES))
-            assert C.nvals == RMAT18_CNNZ
-            del C
-            print(f"[11 fast tier b] RMAT-18 A*A n={S18.shape[0]} "
-                  f"nnz={S18.nnz} cnnz={RMAT18_CNNZ} sampled_rows=4096 "
-                  f"exact checksum={csum:.0f} | " + "; ".join(lines),
-                  flush=True)
-        counts = dict(SRD.launches_by_cap)
-        print("[11 launches] " + ", ".join(
-            f"{name}@C={c}: {v}" for (name, c), v in sorted(counts.items()))
-            + f" | {card} | wall " + " ".join(
-                f"{k}_s={v:.3f}" for k, v in wall.items()), flush=True)
-        for c in SRD.CAPS:
-            assert counts.get(("sort_reduce_rows", c), 0) > 0, (c, counts)
-        assert counts.get(("sort_reduce_rows_tok", BIG_C), 0) > 0, counts
-        traced("fast A*A RMAT-18", lambda: gt.mxm(A18, A18, SR.PLUS_TIMES),
-               card, FAST_PHASES, "11 trace")
-    finally:
-        gt.set_option("spgemm_tier", old)
+    S18 = rmat_graph(18)
+    n18 = S18.shape[0]
+    A18 = gt.Matrix.from_scipy(S18, device="cuda")
+    d = gt.Descriptor(mask_structure=True)
+    mxm = lambda: gt.mxm(A18, A18, SR.PLUS_TIMES)  # noqa: E731
+    masked = lambda: gt.mxm(A18, A18, SR.PLUS_TIMES, mask=A18,  # noqa
+                            desc=d)
+    SRD.reset_launches()
+    with Recorder(caps=(BIG_C,)) as rec:
+        (C, lines), wall["fast_spgemm_b_cold"] = timed(
+            lambda: with_burble(mxm))
+        assert any("SELL declined" in ln for ln in lines), lines
+        csum = check_product(C, S18, rng, RMAT18_CNNZ, "fast A*A RMAT-18")
+        print(f"[11 fast tier] RMAT-18 A*A n={n18} nnz={S18.nnz} "
+              f"cnnz={RMAT18_CNNZ} sampled_rows=4096 exact checksum="
+              f"{csum:.0f} | " + "; ".join(lines), flush=True)
+        (Cm, lines), wall["fast_masked_b_cold"] = timed(
+            lambda: with_burble(masked))
+        assert any("SELL declined" in ln for ln in lines), lines
+        assert_restriction(Cm, C, A18)
+        rows = np.sort(rng.choice(n18, 4096, replace=False))
+        Sr = S18[rows]
+        assert_rows(Cm, (Sr @ S18).multiply(Sr != 0), rows,
+                    "fast A*A<A> RMAT-18")
+        cmnz = Cm.nvals
+        print(f"[11 fast tier] RMAT-18 C<A> = A*A cnnz={cmnz} = A*A on A's "
+              f"pattern (exact) sampled_rows=4096 exact | "
+              + "; ".join(lines), flush=True)
+        del C, Cm
+        C, wall["fast_spgemm_b_warm"] = timed(mxm)
+        assert C.nvals == RMAT18_CNNZ
+        del C
+        Cm, wall["fast_masked_b_warm"] = timed(masked)
+        assert Cm.nvals == cmnz
+        del Cm
+    counts = dict(SRD.launches_by_cap)
+    print("[11 launches] " + ", ".join(
+        f"{name}@C={c}: {v}" for (name, c), v in sorted(counts.items()))
+        + f" | {card} | wall " + " ".join(
+            f"{k}_s={v:.3f}" for k, v in wall.items()), flush=True)
+    for c in SRD.CAPS:
+        assert counts.get(("sort_reduce_rows", c), 0) > 0, (c, counts)
+    assert counts.get(("sort_reduce_rows_tok", BIG_C), 0) > 0, counts
+    traced("fast A*A RMAT-18", mxm, card, FAST_PHASES, "11 trace")
     return wall, rec, counts
 
 

@@ -6,12 +6,7 @@
 any device.  ``burble`` replicates the reference's GBURBLE diagnostics:
 every op logs the method it chose.  ``device`` is where constructors put
 their tensors when the caller names no device: the card by default;
-``set_option("device", "cpu")`` asks for the CPU.  ``spgemm_tier`` is the
-counterpart of the JAX package's ``GB_SPGEMM_TIER`` environment variable
-(which ``init()`` reads): ``"sell"`` (default) runs sparse x sparse
-products on the SELL engine where it applies; any other value skips it,
-and the fast sort-reduce tier runs wherever it is eligible, ``"classic"``
-included, as in the JAX package.
+``set_option("device", "cpu")`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -41,8 +36,6 @@ class _Global:
     kernels_enabled: bool = True
     # device of new tensors when a constructor is given none
     device: str = "cuda"
-    # SpGEMM tier: "sell", or any other value for the fast tier (ops/mxm.py)
-    spgemm_tier: str = "sell"
 
 
 GLOBAL = _Global()
@@ -66,8 +59,6 @@ def init(mode: str = "nonblocking") -> None:
     GLOBAL.blocking = (mode == "blocking")
     if os.environ.get("GB_BURBLE"):
         GLOBAL.burble = True
-    if os.environ.get("GB_SPGEMM_TIER"):
-        GLOBAL.spgemm_tier = os.environ["GB_SPGEMM_TIER"]
 
 
 def finalize() -> None:

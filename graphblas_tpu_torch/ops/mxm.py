@@ -19,8 +19,9 @@ formats:
   - sparse x sparse  -> ESC SpGEMM (expand-sort-compress): the SELL
                         engine (ops/spgemm_sell.py, sort-reduce kernels
                         K5-K8) when the semiring and type have a kernel,
-                        else the classic path (int64 key sort + segmented
-                        reduce, tiled by row blocks)
+                        the fast tier (ops/spgemm_fast.py) where SELL
+                        declines, else the classic path (int64 key sort +
+                        segmented reduce, tiled by row blocks)
 
 The kernel tier is chosen by a predicate only — ``kernels_enabled``, the
 dtype, the monoid, and whether a plan is cached — and the kernel wrappers
@@ -568,11 +569,10 @@ def _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum,
     """Expand-sort-compress SpGEMM.
 
     Phase 0 (flop count, one host sync): F = sum over A entries of
-    |B(k,:)|.  Tier choice, as in the JAX package: the SELL engine
-    (ops/spgemm_sell.py) when the ``spgemm_tier`` option is "sell" and
-    the semiring, type and monoid have a sort-reduce kernel; when SELL is
-    skipped or declines (its int32 slot domain), the fast tier
-    (ops/spgemm_fast.py) for the same semirings and types, else the
+    |B(k,:)|.  Tier choice by predicate: the SELL engine
+    (ops/spgemm_sell.py) when the semiring, type and monoid have a
+    sort-reduce kernel; when SELL declines (its int32 slot domain), the
+    fast tier (ops/spgemm_fast.py), as in the JAX package; else the
     classic path here, whose row blocks of at most SPGEMM_FLOP_BLOCK
     products keep peak memory O(block): expand products (searchsorted on
     the cumulative flop array), prefilter by a sparse mask (the dot3
@@ -621,9 +621,8 @@ def _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum,
         return counts, uvec.long(), uidx, cv
 
     why = SGS.ineligible(sr, zt, n)
-    tier = CFG.GLOBAL.spgemm_tier
-    ip_h = Ar.indptr.cpu().numpy().astype(np.int64)
-    if tier == "sell" and why is None:
+    if why is None:
+        ip_h = Ar.indptr.cpu().numpy().astype(np.int64)
         T_ = SGS.spgemm_sell(Ar, Br, ip_h, sr, zt, m, n, mask, desc,
                              classic_rows, reduce_scalar=reduce_scalar)
         if T_ is not None:
@@ -632,9 +631,8 @@ def _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum,
     if reduce_scalar:
         return None          # no fused path; the caller runs mxm + reduce
     row_cum_h = row_cum.cpu().numpy()
-    if SGF.eligible(sr, zt, n):
-        CFG.burble("spgemm: fast sort-reduce tier (tier=%s), %d flops",
-                   tier, F)
+    if why is None:
+        CFG.burble("spgemm: fast sort-reduce tier, %d flops", F)
         return SGF.spgemm_esc_fast(Ar, Br, cumf, ip_h, row_cum_h, sr, zt, m,
                                    n, mask, desc, classic_rows,
                                    SPGEMM_FLOP_BLOCK)

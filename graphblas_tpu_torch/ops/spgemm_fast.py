@@ -1,8 +1,8 @@
 """Fast SpGEMM tier: ESC with fill-forward expansion into per-row sort
-classes (counterpart of ``graphblas_tpu.ops.spgemm_fast``, the tier that
-``GB_SPGEMM_TIER=v1`` selects there and ``set_option("spgemm_tier",
-"v1")`` here; reference: the saxpy3 Gustavson/hash tasks,
-Source/GB_AxB_saxpy3_template.c:108-484).
+classes (counterpart of ``graphblas_tpu.ops.spgemm_fast``; reference: the
+saxpy3 Gustavson/hash tasks, Source/GB_AxB_saxpy3_template.c:108-484).
+ops/mxm.py takes it for the products the SELL engine declines (its int32
+slot domain), as the JAX package does.
 
 Each output row's products, plus its mask entries when a sparse mask is
 given, pad to the smallest sort class C in ``sortreduce.CAPS`` (128 ...
@@ -56,14 +56,6 @@ LOW32 = (1 << 32) - 1
 SENT = SRD.SENTINEL
 
 
-def eligible(sr, zt, n: int) -> bool:
-    """The JAX tier's predicate (kernels on, no positional multiply, a
-    value type the kernels carry or PAIR into a 64-bit integer) cut to
-    what the port's kernels implement: exactly the SELL engine's
-    predicate (``spgemm_sell.ineligible``)."""
-    return SGS.ineligible(sr, zt, n) is None
-
-
 def operand_arrays(Ar, Br, sr, zt, kdt):
     """Arrays every block reads (the JAX tier's ``host_arrays``, kept on
     the device here): A's column ids, the low 32 bits of A's values in
@@ -94,6 +86,9 @@ def _low32_as(w, kdt):
 def spgemm_esc_fast(Ar, Br, cumf, ip_h, row_cum_h, sr, zt, m, n, mask, desc,
                     classic_rows, flop_block):
     """C = A*B under ``sr`` with the optional sparse mask, as a CSR Matrix.
+    Its eligibility is the SELL engine's (``spgemm_sell.ineligible``): the
+    JAX tier's predicate cut to the semirings and types the port's
+    kernels implement.
 
     Ar/Br: CSR operands on one device; cumf: products before each A entry
     (device); ip_h, row_cum_h: host copies of A's indptr and of cumf at
@@ -221,9 +216,12 @@ def _fill(pos, words, D: int):
     """Every slot of a D-slot domain gets the word of the latest run that
     starts at or before it: a scatter-max at the run starts (a zero-length
     run shares its start with the next run, whose larger loc wins), then
-    one running max."""
-    buf = torch.full((D,), -1, dtype=torch.int64, device=pos.device)
-    return SGS._cummax(buf.scatter_reduce_(0, pos, words, "amax"))
+    one running max.  A zero-length run that ends a full row (exactly C
+    products) starts at the next row's slot 0, which is D for the last row:
+    the buffer has one more slot to take those writes, and drops it (the
+    JAX tier's ``mode="drop"``)."""
+    buf = torch.full((D + 1,), -1, dtype=torch.int64, device=pos.device)
+    return SGS._cummax(buf.scatter_reduce_(0, pos, words, "amax")[:D])
 
 
 def _class_sort(ctx, rows, C):

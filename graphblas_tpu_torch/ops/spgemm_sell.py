@@ -56,10 +56,14 @@ NMAX = (1 << JB) - 1       # n at or above this needs the wide key planes
 LOW32 = (1 << 32) - 1
 WSENT = 1 << 62            # wide-mode packed-key sentinel (sorts last)
 SENT = SRD.SENTINEL
-# SELL declines a product (the caller then takes the fast tier or the
-# classic path) when B's table holds MAX_TABLE_SEGS segments or more, or
-# when the padded slot domain reaches MAX_SLOTS or the table plus the mask
-# MAX_SEGS segments: int32 slot and payload bounds, as in the JAX engine
+# SELL declines a product (the caller then takes the fast tier) when B's
+# table holds MAX_TABLE_SEGS segments or more, or when the padded slot
+# domain reaches MAX_SLOTS or the table plus the mask MAX_SEGS segments:
+# int32 slot and payload bounds, as in the JAX engine.  Unlike the JAX
+# engine, the slot domain counts the fallback rows' padded slots too:
+# SELL holds all of their classic outputs at once (RMAT-18's A*A: 2.9e9
+# products in fallback rows, beyond the card's memory), while the fast
+# tier cuts its fallback rows into blocks.
 MAX_TABLE_SEGS = 1 << 27
 MAX_SLOTS = 1 << 31
 MAX_SEGS = 1 << 30
@@ -257,6 +261,7 @@ def _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt):
         tok_h = None
         row_load_h = row_nseg_h.copy()
     fb_rows = np.flatnonzero(row_load_h * SEGW > TILE)
+    fb_slots = int(row_load_h[fb_rows].sum()) * SEGW
     if fb_rows.size:
         # fallback rows run the classic path, which applies the mask
         # itself; their tokens would land in a neighbour row's segments
@@ -270,9 +275,9 @@ def _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt):
     starts_h, rank_h, br0, be0, bt0, bs0 = NAT.spgemm_layout(
         row_load_h, np.diff(ip_h), tok_h, TILE // SEGW, S8, E_BLK, R_BLK)
     D_pad = int(starts_h[m]) * SEGW
-    if D_pad >= MAX_SLOTS or nsegB_tot + nsegM_tot >= MAX_SEGS:
-        CFG.burble("spgemm-sell: slot domain beyond int32 (%d slots)",
-                   D_pad)
+    if D_pad + fb_slots >= MAX_SLOTS or nsegB_tot + nsegM_tot >= MAX_SEGS:
+        CFG.burble("spgemm-sell: slot domain beyond int32 (%d slots with "
+                   "the fallback's %d)", D_pad + fb_slots, fb_slots)
         return None
     # ---- phase C: per-entry run arrays ------------------------------------
     nnzA = int(Ar.indices.shape[0])
@@ -523,7 +528,7 @@ def spgemm_sell(Ar, Br, ip_h, sr, zt, m, n, mask, desc, classic_rows,
     the fused mxm + reduce under a PLUS monoid (the caller guarantees an
     exact integer sum) — returns an int64 device scalar instead of a
     Matrix, never materialising the output planes.  None when the slot
-    domain is beyond int32 (the caller runs the classic path)."""
+    domain is beyond int32 (the caller runs the fast tier)."""
     mode = _mode(sr)
     kdt, logical = _kdt_for(zt)
     pv = _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt)

@@ -1,6 +1,7 @@
 """Inputs and comparisons for holding the sort-reduce kernels (K5-K8,
-kernels/sortreduce.py) against their plain versions, and the RMAT graph
-generator of the benchmarks.  Used by chip_smoke.py and
+kernels/sortreduce.py) against their plain versions, operands for the
+fast SpGEMM tier's full-row edge case, and the RMAT graph generator of
+the benchmarks.  Used by chip_smoke.py and the tests, among them
 tests/test_torch_cuda.py; numpy only, nothing here launches a kernel."""
 
 from __future__ import annotations
@@ -31,6 +32,32 @@ def rmat_edges(scale, edge_factor, rng, a=0.57, b=0.19, c=0.19):
         cols |= (right | both).astype(np.int64) << lvl
     perm = rng.permutation(n)
     return perm[rows], perm[cols], n
+
+
+def full_row_operands(C, rng, m=64, n=400):
+    """Operands of a product whose last row holds exactly C products and
+    ends in A entries whose B rows are empty: zero-length runs at the end
+    of a full row of the fast SpGEMM tier's class C, the class's last row.
+    Returns COO triples (rows, cols, f32 values, shape) of A (m x n), B
+    (n x n; rows 300 and up empty) and a mask (random, its last row
+    empty, so that row's load stays C)."""
+    lens = [min(n, C - k * n) for k in range(-(-C // n))]
+    lens += list(rng.integers(1, 9, 300 - len(lens)))
+    b_rows = np.repeat(np.arange(300), lens)
+    b_cols = np.concatenate([rng.choice(n, L, replace=False) for L in lens])
+    a_rows = np.repeat(np.arange(m - 1), rng.integers(1, 7, m - 1))
+    a_cols = np.concatenate([
+        np.concatenate([rng.choice(n, c, replace=False) for c in
+                        np.bincount(a_rows, minlength=m - 1)]),
+        np.arange(-(-C // n)), np.arange(300, 310)])
+    a_rows = np.concatenate([a_rows, np.full(a_cols.size - a_rows.size,
+                                             m - 1)])
+    k = int(m * n * 0.05)
+    mk = rng.integers(0, m - 1, k), rng.integers(0, n, k)
+    f = lambda r, c, s: (r, c, rng.standard_normal(r.size)  # noqa: E731
+                         .astype(np.float32), s)
+    return f(a_rows, a_cols, (m, n)), f(b_rows, b_cols, (n, n)), \
+        (*mk, np.ones(k, np.float32), (m, n))
 
 
 def sr_runs(rng, C, runs=64, hi=40):

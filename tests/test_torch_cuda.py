@@ -1,5 +1,6 @@
 """The port's CUDA kernels (SpMV K1-K4, sort-reduce K5-K8, the
-gather-permute K9) against their plain torch versions, on a card.
+gather-permute K9) against their plain torch versions, and the fast
+SpGEMM tier on K5/K6 against scipy, on a card.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -252,3 +253,44 @@ def test_fold_is_bitwise_repeatable(cuda_device):
         a = SPR.spmv_route_monoid(x, p, add=add, mul=mul)
         b = SPR.spmv_route_monoid(x, p, add=add, mul=mul)
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the fast SpGEMM tier (ops/spgemm_fast.py) on K5/K6
+# ---------------------------------------------------------------------------
+
+def _coo_csr(coo):
+    r, c, v, shape = coo
+    S = sps.csr_matrix((v, (r, c)), shape=shape)
+    S.sum_duplicates()
+    return S
+
+
+@pytest.mark.parametrize("masked", (False, True))
+@pytest.mark.parametrize("C", (128, 32768))
+def test_fast_tier_full_row_ends_in_empty_runs(cuda_device, monkeypatch, C,
+                                               masked):
+    """The last row of class C holds exactly C products and ends in A
+    entries whose B rows are empty (zero-length runs one slot past the
+    class's domain): the fast tier on K5/K6 against scipy, fp32 plus
+    within 1e-5*max|c|."""
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch.core import semiring as TS
+    from graphblas_tpu_torch.ops import spgemm_sell as SGS
+    monkeypatch.setattr(SGS, "MAX_SLOTS", 1)       # SELL declines
+    SA, SB, SM = (_coo_csr(x) for x in GT.full_row_operands(
+        C, np.random.default_rng(C)))
+    P = (SA != 0).astype(np.int64) @ (SB != 0).astype(np.int64)
+    want = SA.astype(np.float64) @ SB.astype(np.float64)
+    kw = {}
+    if masked:
+        kw = dict(mask=gt.Matrix.from_scipy(SM, device=cuda_device),
+                  desc=gt.Descriptor(mask_structure=True))
+        P, want = P.multiply(SM != 0), want.multiply(SM != 0)
+    name = "sort_reduce_rows_tok" if masked else "sort_reduce_rows"
+    before = SRD.launches_by_cap.get((name, C), 0)
+    on = lambda S: gt.Matrix.from_scipy(S, device=cuda_device)  # noqa
+    got = gt.mxm(on(SA), on(SB), TS.PLUS_TIMES, **kw).to_scipy()
+    assert SRD.launches_by_cap[(name, C)] > before
+    assert got.nnz == P.nnz
+    assert abs(got - want).max() <= GT.FP32_TOL * abs(want).max()

@@ -1,7 +1,9 @@
-"""Port parity: the fast SpGEMM tier (graphblas_tpu_torch.ops.spgemm_fast,
-``spgemm_tier="v1"``) on the plain versions of the sort-reduce kernels,
-against the JAX package on its XLA path (``xla_path``: the classic ESC
-path) and scipy.
+"""Port parity: the fast SpGEMM tier (graphblas_tpu_torch.ops.spgemm_fast)
+on the plain versions of the sort-reduce kernels, against the JAX package
+on its XLA path (``xla_path``: the classic ESC path) and scipy.  The port
+takes the fast tier where the SELL engine declines a product's slot
+domain; the ``fast`` fixture lowers that limit so SELL declines every
+product.
 
 The operand is a zipf-skewed 400 x 400 matrix (as the JAX package's
 tests/test_spgemm_fast.py) with one row built to land in the C = 8192
@@ -15,6 +17,7 @@ import scipy.sparse as sps
 
 import graphblas_tpu as gb
 import graphblas_tpu_torch as gt
+from graphblas_tpu_torch import testing as GT
 from graphblas_tpu_torch.core import semiring as TS
 from graphblas_tpu_torch.ops import mxm as TMXM
 from graphblas_tpu_torch.ops import spgemm_sell as SGS
@@ -51,15 +54,15 @@ def skewed(kind, seed=3):
 
 
 @pytest.fixture
-def v1():
-    """The port on its fast tier, burble captured; options restored."""
+def fast(monkeypatch):
+    """SELL declines every product, so the port takes its fast tier;
+    burble captured."""
     msgs = []
-    gt.set_option("spgemm_tier", "v1")
+    monkeypatch.setattr(SGS, "MAX_SLOTS", 1)
     gt.set_option("printf", msgs.append)
     gt.set_option("burble", True)
     yield msgs
     gt.set_option("burble", False)
-    gt.set_option("spgemm_tier", "sell")
 
 
 def classes(msgs):
@@ -91,7 +94,7 @@ CASES = {  # name: (semiring, operand kind, mask kind, descriptor kwargs)
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_fast_tier_matches(xla_path, v1, case):
+def test_fast_tier_matches(xla_path, fast, case):
     srname, kind, mkind, dkw = CASES[case]
     S = skewed(kind)
     (Aj, At) = pair(S)
@@ -102,8 +105,8 @@ def test_fast_tier_matches(xla_path, v1, case):
         kw_j["desc"], kw_t["desc"] = gb.Descriptor(**dkw), \
             gt.Descriptor(**dkw)
     Rt = gt.mxm(At, At, getattr(TS, srname), **kw_t)
-    assert any("fast sort-reduce tier" in m for m in v1)
-    assert {8192, 32768} <= classes(v1), v1
+    assert any("fast sort-reduce tier" in m for m in fast)
+    assert {8192, 32768} <= classes(fast), fast
     Rj = gb.mxm(Aj, Aj, getattr(gb.semiring, srname), **kw_j)
     assert Rj.dtype.name == Rt.dtype.name
     assert_same(Rj, Rt, scale_tol=FP32_TOL if kind == "f32" else None)
@@ -115,18 +118,19 @@ def test_fast_tier_matches(xla_path, v1, case):
         assert np.abs(v - want).max() <= FP32_TOL * np.abs(want).max()
 
 
-def test_fast_tier_triangle_count(v1):
-    """PLUS_PAIR into INT64 through triangle_count: no fused count off
-    the SELL tier, so the masked mxm runs on the fast tier (K6 plain)
-    and a reduce."""
+def test_fast_tier_triangle_count(fast):
+    """PLUS_PAIR into INT64 through triangle_count: SELL declines its
+    fused count, so the masked mxm runs on the fast tier (K6 plain) and
+    a reduce."""
     S = skewed("f32")
     A = gt.Matrix.from_scipy(S)
     assert gt.triangle_count(A) == tc_scipy(S)
-    assert any("fast sort-reduce tier" in m for m in v1)
-    assert not any("spgemm-sell" in m for m in v1)
+    assert any("SELL declined (slot domain)" in m for m in fast)
+    assert any("fast sort-reduce tier" in m for m in fast)
+    assert not any("spgemm-sell:" in m and " blocks, " in m for m in fast)
 
 
-def test_fast_tier_multiblock_and_fallback(xla_path, v1, monkeypatch):
+def test_fast_tier_multiblock_and_fallback(xla_path, fast, monkeypatch):
     """A flop block of 2^14 padded slots cuts many row blocks, and a
     dense row of A over a denser B has more than 32768 products: it takes
     the classic fallback inside the fast driver."""
@@ -141,15 +145,15 @@ def test_fast_tier_multiblock_and_fallback(xla_path, v1, monkeypatch):
     monkeypatch.setattr(TMXM, "SPGEMM_FLOP_BLOCK", 1 << 14)
     (Aj, At), (Bj, Bt) = pair(S), pair(B)
     Rt = gt.mxm(At, Bt, TS.PLUS_TIMES)
-    blocks = [m for m in v1 if "row blocks (scan-expand)" in m]
+    blocks = [m for m in fast if "row blocks (scan-expand)" in m]
     assert int(blocks[0].split("spgemm-fast: ")[1].split()[0]) > 10
-    fb = [m for m in v1 if "fallback rows" in m]
+    fb = [m for m in fast if "fallback rows" in m]
     assert fb and not fb[0].split("spgemm-fast: ")[1].startswith("0 ")
     assert_same(gb.mxm(Aj, Bj, gb.semiring.PLUS_TIMES), Rt,
                 scale_tol=FP32_TOL)
 
 
-def test_fast_tier_narrow_int_min_wraps(v1):
+def test_fast_tier_narrow_int_min_wraps(fast):
     """int8 products that overflow wrap to int8 before the MIN reduce, as
     on the classic path (the JAX tier reduces them unwrapped in int32)."""
     rng = np.random.default_rng(31)
@@ -157,47 +161,104 @@ def test_fast_tier_narrow_int_min_wraps(v1):
          * (rng.random((60, 60)) < 0.4)).astype(np.int8)
     A = gt.Matrix.from_scipy(sps.csr_matrix(d))
     got = gt.mxm(A, A, TS.MIN_TIMES)
-    assert any("fast sort-reduce tier" in m for m in v1)
+    assert any("fast sort-reduce tier" in m for m in fast)
     gt.set_option("kernels_enabled", False)          # the classic path
     try:
         want = gt.mxm(A, A, TS.MIN_TIMES)
     finally:
         gt.set_option("kernels_enabled", True)
-    assert any("classic ESC (kernels disabled)" in m for m in v1)
+    assert any("classic ESC (kernels disabled)" in m for m in fast)
     for a, b in zip(got.to_dense_pair(), want.to_dense_pair()):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     prod = d[:, :, None].astype(np.int64) * d[None, :, :]
     assert (prod.astype(np.int8) != prod).any()     # some products wrap
 
 
-def test_tier_classic_still_takes_fast_tier(v1):
-    """As in the JAX package: any tier but "sell" skips SELL, and the fast
-    tier runs wherever it is eligible -- "classic" included."""
-    gt.set_option("spgemm_tier", "classic")
-    S = skewed("f32")
-    A = gt.Matrix.from_scipy(S)
-    R = gt.mxm(A, A, TS.PLUS_TIMES).to_scipy()
-    assert any("fast sort-reduce tier (tier=classic)" in m for m in v1)
-    assert not any("spgemm-sell" in m for m in v1)
-    want = S.astype(np.float64) @ S.astype(np.float64)
-    assert abs(R - want).max() <= FP32_TOL * abs(want).max()
-
-
 def test_sell_decline_takes_fast_tier(monkeypatch):
-    """A product whose slot domain SELL declines (threshold lowered here)
-    runs on the fast tier under the default "sell" tier, as in JAX."""
+    """The product SELL computes under its own limits runs on SELL; with
+    the slot-domain limit lowered below it, SELL declines and the fast
+    tier computes it, as in the JAX package."""
     msgs = []
     gt.set_option("printf", msgs.append)
     gt.set_option("burble", True)
-    monkeypatch.setattr(SGS, "MAX_SLOTS", 1 << 10)
+    S = skewed("i32")
     try:
-        S = skewed("i32")
         A = gt.Matrix.from_scipy(S)
+        R0 = gt.mxm(A, A, TS.PLUS_TIMES).to_scipy()
+        assert not any("fast sort-reduce tier" in m for m in msgs)
+        monkeypatch.setattr(SGS, "MAX_SLOTS", 1 << 10)
+        A = gt.Matrix.from_scipy(S)          # SELL's layout is cached per A
         R = gt.mxm(A, A, TS.PLUS_TIMES).to_scipy()
     finally:
         gt.set_option("burble", False)
-    assert gt.get_option("spgemm_tier") == "sell"
     assert any("SELL declined (slot domain)" in m for m in msgs)
-    assert any("fast sort-reduce tier (tier=sell)" in m for m in msgs)
+    assert any("fast sort-reduce tier" in m for m in msgs)
     S64 = S.astype(np.int64)
     assert abs(R - S64 @ S64).max() == 0
+    assert abs(R0 - S64 @ S64).max() == 0
+
+
+def test_sell_counts_fallback_rows_in_its_slot_domain(monkeypatch):
+    """SELL holds every fallback row's classic output at once, so its
+    slot-domain limit counts the fallback rows' padded slots: with the
+    limit just above its own rows' slots, SELL declines a product whose
+    fallback rows (rows 5 and 6) push it over, and the fast tier takes
+    it."""
+    msgs = []
+    gt.set_option("printf", msgs.append)
+    gt.set_option("burble", True)
+    S = skewed("i32")
+    try:
+        A = gt.Matrix.from_scipy(S)
+        gt.mxm(A, A, TS.PLUS_TIMES)
+        line = next(m for m in msgs if "spgemm-sell:" in m
+                    and " padded slots, " in m)
+        d_pad = int(line.split(" blocks, ")[1].split()[0])
+        assert int(line.split(", ")[-1].split()[0]) >= 2   # fallback rows
+        monkeypatch.setattr(SGS, "MAX_SLOTS", d_pad + 1)
+        del msgs[:]
+        A = gt.Matrix.from_scipy(S)          # SELL's layout is cached per A
+        R = gt.mxm(A, A, TS.PLUS_TIMES).to_scipy()
+    finally:
+        gt.set_option("burble", False)
+    fb = next(m for m in msgs if "slot domain beyond int32" in m)
+    assert int(fb.split("(")[1].split()[0]) > d_pad
+    assert any("fast sort-reduce tier" in m for m in msgs)
+    S64 = S.astype(np.int64)
+    assert abs(R - S64 @ S64).max() == 0
+
+
+def _csr(coo):
+    r, c, v, shape = coo
+    S = sps.csr_matrix((v, (r, c)), shape=shape)
+    S.sum_duplicates()
+    return S
+
+
+@pytest.mark.parametrize("masked", (False, True))
+@pytest.mark.parametrize("C", (128, 32768))
+def test_fast_tier_full_row_ends_in_empty_runs(xla_path, fast, C, masked):
+    """The last row of class C holds exactly C products and ends in A
+    entries whose B rows are empty: their zero-length runs start one
+    slot past the class's domain, and are dropped (not written)."""
+    Ac, Bc, Mc = GT.full_row_operands(C, np.random.default_rng(C))
+    SA, SB = _csr(Ac), _csr(Bc)
+    flops = np.diff(SB.indptr)[SA.indices]
+    last = flops[SA.indptr[-2]:]
+    assert last.sum() == C and last[-1] == 0
+    (Aj, At), (Bj, Bt) = pair(SA), pair(SB)
+    kw_j, kw_t = {}, {}
+    if masked:
+        SM = (_csr(Mc) != 0).astype(np.float32)
+        assert SM[-1].nnz == 0
+        kw_j["mask"], kw_t["mask"] = pair(SM)
+        kw_j["desc"] = gb.Descriptor(mask_structure=True)
+        kw_t["desc"] = gt.Descriptor(mask_structure=True)
+    Rt = gt.mxm(At, Bt, TS.PLUS_TIMES, **kw_t)
+    assert C in classes(fast), fast
+    assert_same(gb.mxm(Aj, Bj, gb.semiring.PLUS_TIMES, **kw_j), Rt,
+                scale_tol=FP32_TOL)
+    want = SA.astype(np.float64) @ SB.astype(np.float64)
+    if masked:
+        want = want.multiply(SM != 0)
+    assert abs(Rt.to_scipy() - want).max() <= FP32_TOL * abs(want).max()

@@ -1,9 +1,9 @@
 """Port parity against the JAX package's fast SpGEMM tier
 (``GB_SPGEMM_TIER=v1``) with its Pallas sort-reduce kernels in interpret
 mode, the JAX package's own CPU route for them (at most 2^20 products).
-The port runs its fast tier (``spgemm_tier="v1"``) on the kernels' plain
-versions.  Plain, masked and complemented products on a small skewed
-matrix (classes up to 512); the case that reaches the C = 32768 class
+The port runs its fast tier on the kernels' plain versions (the SELL
+engine's slot-domain limit lowered, so SELL declines).  Plain, masked
+and complemented products on a small skewed matrix (classes up to 512); the case that reaches the C = 32768 class
 runs a 32768-slot Pallas sort in interpret mode (~30 s) and is marked
 slow.  Tolerance 1e-5*max|c| for fp32 plus-times (summation order)."""
 
@@ -14,6 +14,7 @@ import scipy.sparse as sps
 import graphblas_tpu as gb
 import graphblas_tpu_torch as gt
 from graphblas_tpu_torch.core import semiring as TS
+from graphblas_tpu_torch.ops import spgemm_sell as SGS
 from test_torch_spgemm_fast import skewed
 from torch_parity import assert_same, cpu_default, pair  # noqa: F401
 
@@ -25,17 +26,16 @@ def fast_tiers(monkeypatch):
     """Both packages on their fast tier, JAX's Pallas kernels on (in
     interpret mode on the CPU); JAX's burble lines are returned."""
     monkeypatch.setenv("GB_SPGEMM_TIER", "v1")
+    monkeypatch.setattr(SGS, "MAX_SLOTS", 1)
     msgs = []
     old = {k: gb.get_option(k) for k in ("pallas_enabled", "burble",
                                           "printf")}
     gb.set_option("pallas_enabled", True)
     gb.set_option("printf", msgs.append)
     gb.set_option("burble", True)
-    gt.set_option("spgemm_tier", "v1")
     yield msgs
     for k, v in old.items():
         gb.set_option(k, v)
-    gt.set_option("spgemm_tier", "sell")
 
 
 def small_skewed(rng, n=120):
