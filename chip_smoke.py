@@ -10,13 +10,15 @@ Phases, each printing one line (more for the per-graph phases):
   3. kernels: every kernel against its plain torch version on the card —
      the SpMV kernels K1-K4 at small random sizes with empty rows and one
      row of 10^5 nonzeros (exact for min/max, 1e-5*max|y| for fp32 plus,
-     1e-12*max|y| for fp64), the sort-reduce kernels K5-K8 on runs of
+     1e-12*max|y| for fp64), K2 and K1 also with the indices and values
+     one element past a 16-byte boundary (together, and the indices
+     alone), the sort-reduce kernels K5-K8 on runs of
      2048 and 8192 slots and K5/K6 on runs of 32768 (the cluster kernel)
      with many duplicate keys, empty, all-SENTINEL, full runs and one key
      repeated over a whole run (keys exact; values exact for int32, bool,
      min/max and K7, 1e-5*max|v| for fp32 plus), K9 on a random
-     permutation of 2^24 + 777 fp32 elements (exact), and two K1 and two
-     K3 min-plus calls at graph (b) bitwise equal;
+     permutation of 2^24 + 777 fp32 elements (exact), and two K2, two K1
+     and two K3 min-plus calls at graph (b) bitwise equal;
   4. SpMV main path at real size through the public API on two graphs —
      (a) bench.py's uniform graph (n = 2^20, degree 16, seed 0) and
      (b) RMAT scale 20, edge factor 16, seed 7 (bench_real.py's graph,
@@ -27,7 +29,11 @@ Phases, each printing one line (more for the per-graph phases):
   5. launch counts: every SpMV kernel launched during phase 4;
   6. SpMV times: each kernel, its plain version and one torch.sparse CSR
      product (K1, K2, K4) at graphs (a) and (b) (CUDA events, median of
-     20 after warm-up) beside the bound of its bytes;
+     20 after warm-up) beside the bound of its bytes, and K1's and K2's
+     two passes (the merge-path kernel, the carry pass) apart, by their
+     device time under torch.profiler; at graph (a) also K1's kernel with
+     the columns redrawn in [0, 2^16) and [0, 2^13) (x in L2 only, x in
+     L1: what the x gather costs);
   7. SpGEMM main path (the SELL tier) through gt.mxm, gt.select and
      triangle_count, with the sort-reduce launch counts set to 0 before
      and read after: (a) C = A*A on graph (a) (K5; nnz 268,406,919, 4096
@@ -84,13 +90,14 @@ SPMV_SRC = "graphblas_tpu_torch/csrc/spmv.cu"
 SR_SRC = "graphblas_tpu_torch/csrc/sortreduce.cu"
 PERMUTE_SRC = "graphblas_tpu_torch/csrc/permute.cu"
 KERNELS = {   # key: (name, source, TPU kernel replaced)
-    "K1": ("spmv_planned<float,plus,times>", SPMV_SRC,
+    "K1": ("spmv_merge_planned<float,plus,times>", SPMV_SRC,
            "graphblas_tpu/kernels/spmv_route.py:1446"),
-    "K2": ("spmv_rowwarp_f32", SPMV_SRC,
+    "K2": ("spmv_merge_f32", SPMV_SRC,
            "graphblas_tpu/kernels/spmv_onehot.py:257"),
-    "K3": ("spmv_planned<float,{min,max,plus}x{times,plus,first,second,"
-           "pair}>", SPMV_SRC, "graphblas_tpu/kernels/spmv_route.py:1767"),
-    "K4": ("spmv_planned<double,plus,times>", SPMV_SRC,
+    "K3": ("spmv_merge_planned<float,{min,max,plus}x{times,plus,first,"
+           "second,pair}>", SPMV_SRC,
+           "graphblas_tpu/kernels/spmv_route.py:1767"),
+    "K4": ("spmv_merge_planned<double,plus,times>", SPMV_SRC,
            "graphblas_tpu/kernels/spmv_route.py:1581"),
     "K5": ("sort_reduce_kernel (sort_reduce_rows)", SR_SRC,
            "graphblas_tpu/kernels/sortreduce.py:252"),
@@ -183,6 +190,7 @@ def csr_cuda(S, dtype=None):
 def phase_kernels(errs):
     """Phase 3: each instantiation vs its plain version on the card."""
     import torch
+    from graphblas_tpu_torch import testing as GT
     from graphblas_tpu_torch.kernels import spmv_onehot as OH
     from graphblas_tpu_torch.kernels import spmv_route as SPR
     rng = np.random.default_rng(11)
@@ -195,18 +203,31 @@ def phase_kernels(errs):
         p = SPR.build_plan(ip, ix, v, S.shape)
         if dt == np.float64:
             got = SPR.spmv_route_ds(x, p)
-            want = SPR._fold_extras(
-                SPR.spmv_planned_plain(x, p, "plus", "times"), p, "plus")
+            want = SPR.spmv_planned_plain(x, p, "plus", "times")
             torch.cuda.synchronize()
             errs["K4"] = max(errs["K4"], max_err(got, want, "plus",
                                                  FP64_TOL))
             n_cmp += 1
             continue
-        got = OH.spmv(ip, ix, v, x, S.shape[0])
-        want = OH.spmv_plain(ip, ix, v, x, S.shape[0])
-        torch.cuda.synchronize()
-        errs["K2"] = max(errs["K2"], max_err(got, want, "plus", FP32_TOL))
-        n_cmp += 1
+        # misaligned operands: both arrays one element past a 16-byte
+        # boundary (16-byte loads after a head), then the indices alone
+        # (4-byte loads); row starts fall at every offset mod 4
+        for si, sv in ((0, 0), (1, 1), (1, 0)):
+            ixs, vs = GT.shifted(ix, si), GT.shifted(v, sv)
+            got = OH.spmv(ip, ixs, vs, x, S.shape[0])
+            want = OH.spmv_plain(ip, ixs, vs, x, S.shape[0])
+            torch.cuda.synchronize()
+            errs["K2"] = max(errs["K2"], max_err(got, want, "plus",
+                                                 FP32_TOL))
+            n_cmp += 1
+            if si:
+                ps = SPR.build_plan(ip, ixs, vs, S.shape)
+                got = SPR.spmv_route(x, ps)
+                want = SPR.spmv_planned_plain(x, ps, "plus", "times")
+                torch.cuda.synchronize()
+                errs["K1"] = max(errs["K1"], max_err(got, want, "plus",
+                                                     FP32_TOL))
+                n_cmp += 1
         for add in ADDS:
             for mul in MULS:
                 if (add, mul) == ("plus", "times"):
@@ -214,8 +235,7 @@ def phase_kernels(errs):
                 else:
                     got = SPR.spmv_route_monoid(x, p, add=add, mul=mul)
                     key = "K3"
-                want = SPR._fold_extras(
-                    SPR.spmv_planned_plain(x, p, add, mul), p, add)
+                want = SPR.spmv_planned_plain(x, p, add, mul)
                 torch.cuda.synchronize()
                 errs[key] = max(errs[key],
                                 max_err(got, want, add, FP32_TOL))
@@ -398,10 +418,7 @@ def phase_times(label, st, card, errs):
     csr64 = torch.sparse_csr_tensor(ip.long(), ix.long(), v.double(),
                                     A.shape)
 
-    def plain(xx, p, add, mul):
-        return SPR._fold_extras(SPR.spmv_planned_plain(xx, p, add, mul), p,
-                                add)
-
+    plain = SPR.spmv_planned_plain
     runs = {
         "K2": (lambda: OH.spmv(ip, ix, v, x, m),
                lambda: OH.spmv_plain(ip, ix, v, x, m), "plus", FP32_TOL,
@@ -434,7 +451,58 @@ def phase_times(label, st, card, errs):
         f"{tp:.3f} ms, torch.sparse "
         + ("-" if tl is None else f"{tl:.3f} ms") + f", bound {b:.4f} ms"
         for k, (t, tp, tl, b, _) in out.items()), flush=True)
+    split = {k: two_passes(runs[k][0]) for k in ("K2", "K1")}
+    print(f"[6 passes {label}] {card} | device time a call, "
+          "torch.profiler, 20 calls | " + " | ".join(
+              f"{KERNELS[k][0]}: merge-path kernel "
+              f"{s['spmv_merge_kernel']:.1f} us + carry pass "
+              f"{s['spmv_carry_kernel']:.1f} us"
+              for k, s in split.items()), flush=True)
     return out
+
+
+def gather_wall(st, card):
+    """Phase 6 at graph (a): what binds the SpMV kernels.  K1's merge-path
+    kernel (device time) on graph (a)'s rows and values, with its columns
+    as they are, then redrawn uniformly in [0, 2^16) (x's 256 KB stay in
+    L2 but not in L1) and in [0, 2^13) (32 KB: the gathers hit L1).  The
+    same bytes come from device memory in all three."""
+    import torch
+    from graphblas_tpu_torch.kernels import spmv_route as SPR
+    A = st["A"]
+    x = torch.from_numpy(st["x"]).cuda()
+    rng = np.random.default_rng(17)
+    us = {}
+    for label, hi in (("graph columns", None), ("columns < 2^16", 1 << 16),
+                      ("columns < 2^13", 1 << 13)):
+        ix = A.indices if hi is None else torch.from_numpy(
+            rng.integers(0, hi, A.nvals).astype(np.int32)).cuda()
+        p = SPR.build_plan(A.indptr, ix, A.values, A.shape)
+        us[label] = two_passes(
+            lambda: SPR.spmv_route(x, p))["spmv_merge_kernel"]
+    print(f"[6 gather wall] {card} | {KERNELS['K1'][0]} merge-path kernel, "
+          "device time a call: " + " | ".join(
+              f"{k} {v:.1f} us" for k, v in us.items()), flush=True)
+
+
+def two_passes(fn, calls=20):
+    """The device time (us) of each of the SpMV's two kernels in one call
+    of ``fn``, by name, under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.key_averages():
+        for name in ("spmv_merge_kernel", "spmv_carry_kernel"):
+            if name in e.key and _on_device(e):
+                us[name] = us.get(name, 0.0) + _dev_us(e) / calls
+    assert set(us) == {"spmv_merge_kernel", "spmv_carry_kernel"}, us
+    return us
 
 
 # ---------------------------------------------------------------------------
@@ -514,22 +582,30 @@ def phase_permute_kernel(errs):
 
 
 def phase_repeat(S):
-    """Phase 3d: the planned SpMV at graph (b) is bitwise repeatable (its
-    split rows fold without atomics): two K1 calls, two K3 min-plus
-    calls.  Returns the number of extra sub-rows folded."""
+    """Phase 3d: the SpMV at graph (b) is bitwise repeatable (rows cut
+    between tiles fold their carries without atomics): two K2 calls, two
+    K1 calls, two K3 min-plus calls.  Returns (tiles, tiles whose end cuts
+    a row)."""
     import torch
+    from graphblas_tpu_torch.kernels import spmv_onehot as OH
     from graphblas_tpu_torch.kernels import spmv_route as SPR
     ip, ix, v = csr_cuda(S)
     p = SPR.build_plan(ip, ix, v, S.shape)
     x = torch.from_numpy(np.random.default_rng(15).standard_normal(
         S.shape[1]).astype(np.float32)).cuda()
+    m = S.shape[0]
+    e, f = OH.spmv(ip, ix, v, x, m), OH.spmv(ip, ix, v, x, m)
     a, b = SPR.spmv_route(x, p), SPR.spmv_route(x, p)
     c = SPR.spmv_route_monoid(x, p, add="min", mul="plus")
     d = SPR.spmv_route_monoid(x, p, add="min", mul="plus")
     torch.cuda.synchronize()
+    assert torch.equal(e, f), "K2 not bitwise repeatable"
     assert torch.equal(a, b), "K1 not bitwise repeatable"
     assert torch.equal(c, d), "K3 min-plus not bitwise repeatable"
-    return p.m_sub - p.m
+    tr = p.tile_row.cpu().numpy().astype(np.int64)
+    yk = np.arange(p.ntiles) * SPR._cuda.SPMV_TILE - tr[:-1]  # nonzeros
+    cuts = int((S.indptr[tr[1:-1]] < yk[1:]).sum())
+    return p.ntiles, cuts
 
 
 class Recorder:
@@ -1016,15 +1092,16 @@ def main():
     n_cmp, shape, max_row = phase_kernels(errs)
     n_sr = phase_sr_kernels(errs)
     n_perm = phase_permute_kernel(errs)
-    n_extra = phase_repeat(graphs["b (RMAT-20 x16)"])
+    n_tiles, n_cuts = phase_repeat(graphs["b (RMAT-20 x16)"])
     print(f"[3 kernels] {n_cmp} SpMV instantiations match their plain "
           f"versions (min/max exact, fp32 plus <= {FP32_TOL}*max|y|, fp64 "
           f"<= {FP64_TOL}*max|y|) at {shape[0]}x{shape[1]}, max row "
           f"{max_row}; {n_sr} sort-reduce comparisons at C = 2048, 8192, "
           f"32768 (K5/K6 only; keys, ints, bool, min/max and K7 exact, "
           f"fp32 plus <= {FP32_TOL}*max|v|); K9 exact on {n_perm} "
-          f"elements; K1 and K3 min-plus bitwise repeatable at graph (b) "
-          f"({n_extra} extra sub-rows folded); max|err| " + ", ".join(
+          f"elements; K2, K1 and K3 min-plus bitwise repeatable at graph "
+          f"(b) ({n_tiles} tiles, {n_cuts} of them start inside a row); "
+          f"max|err| " + ", ".join(
               f"{k}={v:.3e}" for k, v in errs.items())
           + f"; {time.perf_counter() - t0:.1f} s", flush=True)
     # 4. main path; 5. launch counts
@@ -1046,6 +1123,7 @@ def main():
     # 6. times
     times = {label: phase_times(label, st, card, errs)
              for label, st in states.items()}
+    gather_wall(states[next(iter(states))], card)
     ta = times[next(iter(times))]
     del states, times, graphs
     # 7. SpGEMM main path, sort-reduce launch counts

@@ -94,10 +94,11 @@ def build_log(name: str) -> str:
 
 def _bind_spmv(so) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int64
-    so.gb_spmv_rowwarp_f32.argtypes = [P, P, P, P, P, I, I, P]
-    so.gb_spmv_rowwarp_f32.restype = ctypes.c_int
-    so.gb_spmv_planned.argtypes = [I, I, I, P, P, P, I, P, P, P, P, P]
-    so.gb_spmv_planned.restype = ctypes.c_int
+    so.gb_spmv_merge_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+    so.gb_spmv_merge_f32.restype = ctypes.c_int
+    so.gb_spmv_merge_planned.argtypes = [I, I, I, P, P, P, P, P, P, P, P,
+                                         I, I, I, P]
+    so.gb_spmv_merge_planned.restype = ctypes.c_int
 
 
 def _bind_sortreduce(so) -> None:
@@ -155,33 +156,51 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def spmv_rowwarp_f32(indptr, indices, values, x, y, m: int) -> None:
-    """y[:m] = A x (plus-times fp32) over CSR arrays on one card."""
-    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
-    grid = min(-(-m // 8), sms * 32)      # 8 warps a block, grid-strided
-    with torch.cuda.device(y.device):
-        err = lib("spmv").gb_spmv_rowwarp_f32(
-            indptr.data_ptr(), indices.data_ptr(), values.data_ptr(),
-            x.data_ptr(), y.data_ptr(), m, grid, _stream(y.device))
-    _check(err, "spmv_rowwarp_f32")
-
+SPMV_TILE = 2048     # merge-path steps per thread block: kTile in spmv.cu
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 ADD_CODES = {"plus": 0, "min": 1, "max": 2}
 MUL_CODES = {"times": 0, "plus": 1, "first": 2, "second": 3, "pair": 4}
 
 
-def spmv_planned(sub_start, sub_end, block_ptr, indices, values, x, y_sub,
-                 add: str, mul: str) -> None:
-    """y_sub = A (add.mul) x over a plan's sub-rows, on one card."""
-    nblocks = block_ptr.numel() - 1
-    with torch.cuda.device(y_sub.device):
-        err = lib("spmv").gb_spmv_planned(
+def spmv_tiles(m: int, nnz: int) -> int:
+    """Merge-path tiles (thread blocks, carry entries) of an m-row CSR
+    matrix with nnz nonzeros."""
+    return -(-(m + nnz) // SPMV_TILE)
+
+
+def _carries(y, nnz: int):
+    """Scratch for the carry of each tile: its row and its partial."""
+    tiles = spmv_tiles(y.numel(), nnz)
+    return (torch.empty(tiles, dtype=torch.int32, device=y.device),
+            torch.empty(tiles, dtype=y.dtype, device=y.device))
+
+
+def spmv_merge_f32(indptr, indices, values, x, y) -> None:
+    """y = A x (plus-times fp32) over CSR arrays, on one card: the
+    merge-path kernel, then the carry pass."""
+    carry_row, carry_val = _carries(y, indices.numel())
+    with torch.cuda.device(y.device):
+        err = lib("spmv").gb_spmv_merge_f32(
+            indptr.data_ptr(), indices.data_ptr(), values.data_ptr(),
+            x.data_ptr(), y.data_ptr(), carry_row.data_ptr(),
+            carry_val.data_ptr(), y.numel(), indices.numel(), SPMV_TILE,
+            _stream(y.device))
+    _check(err, "spmv_merge_f32")
+
+
+def spmv_merge_planned(indptr, tile_row, indices, values, x, y, add: str,
+                       mul: str) -> None:
+    """y = A (add.mul) x over a plan's tiles, on one card: both passes."""
+    carry_row, carry_val = _carries(y, indices.numel())
+    with torch.cuda.device(y.device):
+        err = lib("spmv").gb_spmv_merge_planned(
             _DTYPE_CODES[values.dtype], ADD_CODES[add], MUL_CODES[mul],
-            sub_start.data_ptr(), sub_end.data_ptr(), block_ptr.data_ptr(),
-            nblocks, indices.data_ptr(), values.data_ptr(), x.data_ptr(),
-            y_sub.data_ptr(), _stream(y_sub.device))
-    _check(err, f"spmv_planned<{values.dtype}, {add}, {mul}>")
+            indptr.data_ptr(), tile_row.data_ptr(), indices.data_ptr(),
+            values.data_ptr(), x.data_ptr(), y.data_ptr(),
+            carry_row.data_ptr(), carry_val.data_ptr(), y.numel(),
+            indices.numel(), SPMV_TILE, _stream(y.device))
+    _check(err, f"spmv_merge_planned<{values.dtype}, {add}, {mul}>")
 
 
 # sortreduce.cu: value plane codes and monoid op codes (see the source)

@@ -5,15 +5,22 @@ Replaces the TPU kernel graphblas_tpu/kernels/spmv_onehot.py
 (``_kernel`` through ``_run_inner``), which routes the x-gather and the
 y-scatter through the MXU as one-hot matmuls with bf16 hi/lo splits
 (relative error ~2^-16) and needs x and y to fit VMEM (n <= 3*2^19).
-Here the CUDA kernel ``spmv_rowwarp_f32`` (``csrc/spmv.cu``) streams the
-CSR arrays from device memory with one warp per row and a warp-shuffle
-sum: full fp32 products and fp32 accumulation, any size, no
-preprocessing.  It is bound by device-memory bytes (~12 B per nonzero
-plus the x gather); coalesced index/value loads and x held in L2 are what
-the design does about that.
+Here the CUDA kernel ``spmv_merge_f32`` (``csrc/spmv.cu``) runs a merge
+path over the raw CSR arrays, with no preprocessing: the m + nnz steps of
+the CSR walk (row ends and nonzeros) are cut into equal tiles, one per
+thread block, each finding its start by a warp search of indptr, so a
+power-law hub row spreads over many blocks instead of one warp.  Full
+fp32 products and fp32 sums, any size.  Its compulsory traffic is 8 B of
+device memory per nonzero, but what binds it is the x gather: one random
+32-byte L2 request per nonzero.  16-byte loads of the tile's indices and
+values and every x gather of a thread in flight at once are what the
+design does about that.
+The rows cut between tiles leave one carry per tile, which a second
+kernel adds to their rows in tile order: no atomics, so the result is
+bitwise repeatable.
 
-``spmv`` launches the kernel for CUDA tensors and runs ``spmv_plain``, the
-plain torch version, for CPU tensors.
+``spmv`` launches the kernels for CUDA tensors and runs ``spmv_plain``,
+the plain torch version, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ def spmv(indptr, indices, values, x, m: int) -> torch.Tensor:
     _cuda.require(values, "values", torch.float32, dev, nnz)
     _cuda.require(x, "x", torch.float32, dev)
     y = torch.empty(m, dtype=torch.float32, device=dev)
-    _cuda.spmv_rowwarp_f32(indptr, indices, values, x, y, m)
-    launches += 1
+    if m + nnz:
+        _cuda.spmv_merge_f32(indptr, indices, values, x, y)
+        launches += 1
     return y

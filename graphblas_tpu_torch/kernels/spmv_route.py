@@ -11,26 +11,26 @@ Replaces three TPU kernels of graphblas_tpu/kernels/spmv_route.py:
 
 The TPU plan is a static permutation because the TensorCore has no
 gather.  Hopper gathers natively and has fp64 units, so the port's plan
-is only what balances the work: a partition of the rows into blocks of
-about equal nonzero count, with rows longer than ``row_cap`` split into
-sub-rows whose partial results land in ``y[m:m_sub]`` and are folded back
-into their ``extra_owner`` row by the wrapper, as the JAX wrapper folds its
-extras outside the kernel.  The fold is bitwise reproducible: each
-owner's extras are gathered through a padded (owners, max extras) table
-and reduced along it in one pass, with no atomics.  One CUDA template,
-``spmv_planned<T, ADD, MUL>`` in ``csrc/spmv.cu``, serves all three entry
-points (16 instantiations).  It is bound by device-memory bytes (~12 B
-per nonzero plus the x gather, 8 B more in fp64): coalesced loads of the
-CSR arrays, x through the read-only path, one warp per sub-row, reduce in
-registers.
+is only what balances the work: the merge-path tiling of the CSR walk.
+The walk merges the m row ends with the nnz nonzeros (m + nnz steps); tile
+b is steps [b * tile, (b + 1) * tile), one thread block, and the plan
+holds the row each tile starts in (``tile_row``), so the kernel searches
+nothing.  Every block has the same work at any row-length skew.  A row cut
+between tiles leaves one carry per cut, which a second kernel adds to its
+row in tile order: no atomics, so the result is bitwise repeatable.  One
+CUDA template, ``spmv_merge_planned<T, ADD, MUL>`` in ``csrc/spmv.cu``,
+serves all three entry points (16 instantiations).  Its compulsory
+traffic is 8 B of device memory per nonzero (12 B in fp64), but what
+binds it is the x gather: one random 32-byte L2 request per nonzero.
+16-byte loads of the tile's indices and values and every x gather of a
+thread in flight at once are what the design does about that.
 
-Each entry point launches the kernel for CUDA tensors and runs the plain
-torch version, which walks the same plan (blocks, sub-rows,
-``extra_owner``), for CPU tensors.
+Each entry point launches the kernels for CUDA tensors and runs the plain
+torch version, which walks the same tiles, for CPU tensors.
 
 Plans are cached per matrix with identity-checked keys, and save/load to
 an ``.npz`` of the port's own format.  Plans written by the JAX package
-(a TPU route layout) are refused.
+(a TPU route layout) and by earlier versions of the port are refused.
 """
 
 from __future__ import annotations
@@ -48,10 +48,7 @@ from ..core import errors as E
 from . import _cuda
 from .spmv_onehot import ACC
 
-ROW_CAP = 512        # rows longer than this split into sub-rows
-BLOCK_COST = 4096    # nonzeros (+ ROW_COST per sub-row) per 8-warp block
-ROW_COST = 4
-PLAN_FORMAT = "graphblas_tpu_torch.spmv_plan.v1"
+PLAN_FORMAT = "graphblas_tpu_torch.spmv_plan.v2"
 
 MONOID_IDENTITY = {"plus": 0.0, "min": math.inf, "max": -math.inf}
 MULTIPLIES = ("times", "plus", "first", "second", "pair")
@@ -72,45 +69,32 @@ def _host(t):
 
 @dataclasses.dataclass(eq=False)
 class SpmvRoutePlan:
-    """Row partition of one CSR matrix, plus (when bound) its arrays.
+    """Merge-path tiling of one CSR matrix, plus (when bound) its arrays.
 
-    Sub-row r covers entries [sub_start[r], sub_end[r]); r < m is row r's
-    first chunk, r >= m an extra chunk of row extra_owner[r - m].  Block b
-    owns sub-rows [block_ptr[b], block_ptr[b + 1])."""
+    With tile = ``_cuda.SPMV_TILE``, tile b covers steps [b * tile,
+    min((b + 1) * tile, m + nnz)) of the walk; it starts after tile_row[b]
+    row ends and b * tile - tile_row[b] nonzeros, and ends the rows
+    [tile_row[b], tile_row[b + 1])."""
 
     m: int
     n: int
-    m_sub: int
     nnz: int
-    row_cap: int
-    sub_start: torch.Tensor       # (m_sub,) int32
-    sub_end: torch.Tensor         # (m_sub,) int32
-    block_ptr: torch.Tensor       # (nblocks + 1,) int32
-    extra_owner: torch.Tensor | None   # (m_sub - m,) int64
+    tile_row: torch.Tensor        # (tiles + 1,) int32, tile_row[-1] = m
     indptr_digest: str
     indptr: torch.Tensor | None = None
     indices: torch.Tensor | None = None
     values: torch.Tensor | None = None
-    # the fold of the extras, derived from extra_owner (_fold_table)
-    fold_owner: torch.Tensor | None = dataclasses.field(init=False,
-                                                        default=None)
-    fold_table: torch.Tensor | None = dataclasses.field(init=False,
-                                                        default=None)
-
-    def __post_init__(self):
-        if self.extra_owner is not None:
-            self.fold_owner, self.fold_table = _fold_table(self.extra_owner)
 
     @property
-    def nblocks(self) -> int:
-        return int(self.block_ptr.numel()) - 1
+    def ntiles(self) -> int:
+        return int(self.tile_row.numel()) - 1
 
     @property
     def device(self) -> torch.device:
-        return self.sub_start.device
+        return self.tile_row.device
 
     def matches(self, indptr, shape) -> bool:
-        """True when this plan partitions a matrix with this indptr."""
+        """True when this plan tiles a matrix with this indptr."""
         return (tuple(shape) == (self.m, self.n)
                 and int(indptr.shape[0]) == self.m + 1
                 and _digest(indptr) == self.indptr_digest)
@@ -122,74 +106,33 @@ class SpmvRoutePlan:
                 or int(indices.shape[0]) != self.nnz \
                 or int(values.shape[0]) != self.nnz:
             raise E.InvalidValue("route plan does not match this matrix")
-        dev = values.device
-        eo = self.extra_owner
         return dataclasses.replace(
-            self, sub_start=self.sub_start.to(dev),
-            sub_end=self.sub_end.to(dev),
-            block_ptr=self.block_ptr.to(dev),
-            extra_owner=None if eo is None else eo.to(dev),
-            indptr=indptr, indices=indices, values=values)
+            self, tile_row=self.tile_row.to(values.device), indptr=indptr,
+            indices=indices, values=values)
 
 
-def _fold_table(owner):
-    """(owners, table): the rows that own extra sub-rows, ascending, and
-    per owner the positions of its extras in y_sub[m:], padded to the
-    longest list with k = owner.numel(), the slot that holds the add
-    identity in ``_fold_extras``."""
-    k = owner.numel()
-    dev = owner.device
-    order = torch.argsort(owner, stable=True)
-    owners, cnt = torch.unique_consecutive(owner[order], return_counts=True)
-    first = torch.cumsum(cnt, 0) - cnt
-    col = torch.arange(k, device=dev) - torch.repeat_interleave(first, cnt)
-    row = torch.repeat_interleave(torch.arange(owners.numel(), device=dev),
-                                  cnt)
-    table = torch.full((owners.numel(), int(cnt.max())), k,
-                       dtype=torch.int64, device=dev)
-    table[row, col] = order
-    return owners, table
+def _tile_rows(indptr) -> np.ndarray:
+    """The row each merge-path tile starts in, and m last: after d steps
+    the walk has ended the rows whose end step (indptr[r + 1] + r) comes
+    before d."""
+    ip = np.ascontiguousarray(indptr, np.int64)
+    m = ip.size - 1
+    ends = ip[1:] + np.arange(m)
+    starts = np.arange(0, m + int(ip[-1]), _cuda.SPMV_TILE)
+    return np.append(np.searchsorted(ends, starts), m).astype(np.int32)
 
 
-def build_plan(indptr, indices, values, shape, row_cap: int = ROW_CAP,
-               block_cost: int = BLOCK_COST) -> SpmvRoutePlan:
-    """Build the plan for a CSR matrix (host numpy work; the partition
-    lands on the arrays' device, bound to them)."""
+def build_plan(indptr, indices, values, shape) -> SpmvRoutePlan:
+    """Build the plan for a CSR matrix (host numpy work; the tiling lands
+    on the arrays' device, bound to them)."""
     m, n = int(shape[0]), int(shape[1])
     ip = np.ascontiguousarray(_host(indptr), np.int64)
-    counts = np.diff(ip)
-    nnz = int(ip[-1]) if ip.size else 0
-    nxtra = np.maximum(-(-counts // row_cap) - 1, 0)
-    k = int(nxtra.sum())
-    m_sub = m + k
-    start = np.empty(m_sub, np.int64)
-    end = np.empty(m_sub, np.int64)
-    start[:m] = ip[:-1]
-    end[:m] = ip[:-1] + np.minimum(counts, row_cap)
-    owner = None
-    if k:
-        heavy = np.flatnonzero(nxtra)
-        owner = np.repeat(heavy, nxtra[heavy])
-        first = np.cumsum(nxtra[heavy]) - nxtra[heavy]     # per heavy row
-        chunk = np.arange(k) - np.repeat(first, nxtra[heavy]) + 1
-        start[m:] = ip[owner] + chunk * row_cap
-        end[m:] = np.minimum(start[m:] + row_cap, ip[owner + 1])
-    cost = np.zeros(m_sub + 1, np.int64)
-    np.cumsum(end - start + ROW_COST, out=cost[1:])
-    nb = max(1, -(-int(cost[-1]) // block_cost))
-    cuts = np.searchsorted(cost, np.arange(1, nb) * block_cost)
-    block_ptr = np.unique(np.concatenate([[0], cuts, [m_sub]]))
     dev = values.device if isinstance(values, torch.Tensor) else "cpu"
     plan = SpmvRoutePlan(
-        m=m, n=n, m_sub=m_sub, nnz=nnz, row_cap=row_cap,
-        sub_start=torch.as_tensor(start.astype(np.int32), device=dev),
-        sub_end=torch.as_tensor(end.astype(np.int32), device=dev),
-        block_ptr=torch.as_tensor(block_ptr.astype(np.int32), device=dev),
-        extra_owner=(None if owner is None else
-                     torch.as_tensor(owner.astype(np.int64), device=dev)),
+        m=m, n=n, nnz=int(ip[-1]),
+        tile_row=torch.as_tensor(_tile_rows(ip), device=dev),
         indptr_digest=_digest(ip))
-    CFG.burble("route plan: m=%d sub-rows=%d blocks=%d", m, m_sub,
-               plan.nblocks)
+    CFG.burble("route plan: m=%d nnz=%d tiles=%d", m, plan.nnz, plan.ntiles)
     if isinstance(values, torch.Tensor):
         plan = dataclasses.replace(plan, indptr=indptr, indices=indices,
                                    values=values)
@@ -232,41 +175,42 @@ def register_plan(indptr, indices, values, shape, plan):
 
 
 def save_plan(plan: SpmvRoutePlan, path) -> None:
-    """Write the partition (not the matrix) to ``path`` as an .npz in the
+    """Write the tiling (not the matrix) to ``path`` as an .npz in the
     port's format, under exactly that name."""
-    eo = plan.extra_owner
     with open(path, "wb") as f:
         np.savez(f, format=np.array(PLAN_FORMAT),
-                 shape=np.array([plan.m, plan.n, plan.m_sub, plan.nnz,
-                                 plan.row_cap], np.int64),
-                 sub_start=_host(plan.sub_start),
-                 sub_end=_host(plan.sub_end),
-                 block_ptr=_host(plan.block_ptr),
-                 extra_owner=(np.zeros(0, np.int64) if eo is None
-                              else _host(eo)),
+                 shape=np.array([plan.m, plan.n, plan.nnz,
+                                 _cuda.SPMV_TILE], np.int64),
+                 tile_row=_host(plan.tile_row),
                  indptr_digest=np.array(plan.indptr_digest))
 
 
 def load_plan(path) -> SpmvRoutePlan:
     """Read a plan written by ``save_plan`` (unbound, on the CPU; bind it
     with ``register_plan``).  A JAX route plan is a TPU layout and is
-    refused."""
+    refused; so is a plan of an earlier port format (v1: split sub-rows
+    in row blocks) or of another tile size."""
     jax_msg = (f"{path} is a graphblas_tpu (JAX) route plan, a TPU layout "
                "the port cannot run; build the port's plan with "
                "Matrix.optimize(plan_path=...) or spmv_route.save_plan")
     if os.path.isdir(path):
         raise E.InvalidValue(jax_msg)
     with np.load(path, allow_pickle=False) as z:
-        if "format" not in z.files or str(z["format"]) != PLAN_FORMAT:
+        fmt = str(z["format"]) if "format" in z.files else ""
+        if not fmt.startswith("graphblas_tpu_torch.spmv_plan."):
             raise E.InvalidValue(jax_msg)
-        m, n, m_sub, nnz, row_cap = (int(v) for v in z["shape"])
-        eo = z["extra_owner"]
+        if fmt != PLAN_FORMAT:
+            raise E.InvalidValue(
+                f"{path} is a {fmt} plan (sub-rows in row blocks); the "
+                f"merge-path kernels read {PLAN_FORMAT} tilings: delete it "
+                "and rebuild with Matrix.optimize(plan_path=...)")
+        m, n, nnz, tile = (int(v) for v in z["shape"])
+        if tile != _cuda.SPMV_TILE:
+            raise E.InvalidValue(
+                f"{path} tiles the walk by {tile} steps, the kernels by "
+                f"{_cuda.SPMV_TILE}: rebuild it")
         return SpmvRoutePlan(
-            m=m, n=n, m_sub=m_sub, nnz=nnz, row_cap=row_cap,
-            sub_start=torch.from_numpy(z["sub_start"].copy()),
-            sub_end=torch.from_numpy(z["sub_end"].copy()),
-            block_ptr=torch.from_numpy(z["block_ptr"].copy()),
-            extra_owner=torch.from_numpy(eo.copy()) if eo.size else None,
+            m=m, n=n, nnz=nnz, tile_row=torch.from_numpy(z["tile_row"].copy()),
             indptr_digest=str(z["indptr_digest"]))
 
 
@@ -298,51 +242,61 @@ def _repeat_arange(starts, lens):
 
 def spmv_planned_plain(x, plan: SpmvRoutePlan, add: str,
                        mul: str) -> torch.Tensor:
-    """Plain torch version of ``spmv_planned``: y_sub over the plan's
-    sub-rows, visited block by block.  A sub-row no block visits stays
-    NaN, so a broken partition shows in the result.  fp32 plus sums in
-    fp64 (``spmv_onehot.ACC``)."""
+    """Plain torch version of ``spmv_merge_planned``: walks the plan tile
+    by tile as the kernel does.  Tile b takes the nonzeros
+    [b * tile - tile_row[b], (b + 1) * tile - tile_row[b + 1]), gives each
+    to the first of its rows tile_row[b] ... tile_row[b + 1] whose end lies
+    past it, writes each row it ends (all but the last) with the partial of
+    its own nonzeros, and carries the partial of the row open at its end
+    into that row.  A row that no tile ends stays NaN, so a broken tiling
+    shows in the result.  fp32 plus sums in fp64 (``spmv_onehot.ACC``)."""
     dev = plan.values.device
-    bp = plan.block_ptr.long()
-    sub = _repeat_arange(bp[:-1], bp[1:] - bp[:-1])     # visited sub-rows
-    s = plan.sub_start.long()[sub]
-    lens = plan.sub_end.long()[sub] - s
-    pos = _repeat_arange(s, lens)
-    seg = torch.repeat_interleave(sub, lens, output_size=pos.shape[0])
-    a = plan.values[pos]
-    xg = x[plan.indices[pos]] if mul in ("times", "plus", "second") \
-        else torch.zeros_like(a)
-    prod = _mul(mul, xg, a)
+    m, nnz = plan.m, plan.nnz
+    tr = plan.tile_row.long()
+    tile = _cuda.SPMV_TILE
+    tiles = torch.arange(tr.numel() - 1, device=dev)
+    d0 = tiles * tile
+    x0, x1 = tr[:-1], tr[1:]
+    y0 = (d0 - x0).clamp(0, nnz)
+    y1 = ((d0 + tile).clamp(max=m + nnz) - x1).clamp(0, nnz)
+    lens = (y1 - y0).clamp(min=0)
+    k = _repeat_arange(y0, lens)                  # nonzeros, tile by tile
+    kt = torch.repeat_interleave(tiles, lens, output_size=k.numel())
+    kr = torch.searchsorted(plan.indptr.long()[1:], k, right=True)
+    kr = torch.minimum(torch.maximum(kr, x0[kt]), x1[kt])
+    # partial of each (tile, row) the walk visits
+    seg, inv = torch.unique(kt * (m + 1) + kr, return_inverse=True)
+    xg = x[plan.indices[k]] if mul in ("times", "plus", "second") \
+        else torch.zeros_like(plan.values[k])
+    prod = _mul(mul, xg, plan.values[k])
     acc = ACC.get(x.dtype, x.dtype) if add == "plus" else x.dtype
-    y_sub = torch.full((plan.m_sub,), math.nan, dtype=acc, device=dev)
-    y_sub[sub] = MONOID_IDENTITY[add]
+    ident = MONOID_IDENTITY[add]
+    part = torch.full((seg.numel(),), ident, dtype=acc, device=dev)
     if add == "plus":
-        return y_sub.index_add_(0, seg, prod.to(acc)).to(x.dtype)
-    return y_sub.scatter_reduce_(0, seg, prod,
-                                 "amin" if add == "min" else "amax",
-                                 include_self=True)
-
-
-def _fold_extras(y_sub, plan: SpmvRoutePlan, add: str) -> torch.Tensor:
-    """y = y_sub[:m] with each extra sub-row folded into its owner row:
-    the owner's extras, gathered through ``plan.fold_table`` (pads read
-    the identity), reduce along the table's rows, then combine with the
-    owner's first chunk.  No atomics, so the order is fixed."""
-    y = y_sub[:plan.m]
-    if plan.extra_owner is None:
-        return y
-    ext = torch.cat([y_sub[plan.m:plan.m_sub],
-                     y_sub.new_full((1,), MONOID_IDENTITY[add])])
-    g = ext[plan.fold_table]
-    own = plan.fold_owner
-    y = y.clone()
-    if add == "plus":
-        y[own] = y[own] + g.sum(1)
-    elif add == "min":
-        y[own] = torch.minimum(y[own], g.amin(1))
+        part.index_add_(0, inv, prod.to(acc))
     else:
-        y[own] = torch.maximum(y[own], g.amax(1))
-    return y
+        part.scatter_reduce_(0, inv, prod, "amin" if add == "min" else "amax")
+
+    def partial(t, r):
+        q = t * (m + 1) + r
+        if seg.numel() == 0:
+            return torch.full(q.shape, ident, dtype=acc, device=dev)
+        pos = torch.searchsorted(seg, q).clamp(max=seg.numel() - 1)
+        return torch.where(seg[pos] == q, part[pos], ident)
+
+    y = torch.full((m,), math.nan, dtype=acc, device=dev)
+    nr = (x1 - x0).clamp(min=0)
+    rows = _repeat_arange(x0, nr)                 # rows each tile ends
+    y[rows] = partial(torch.repeat_interleave(tiles, nr,
+                                              output_size=rows.numel()),
+                      rows)
+    cut = x1 < m                                  # row open at a tile end
+    cv = partial(tiles[cut], x1[cut])
+    if add == "plus":
+        y.index_add_(0, x1[cut], cv)
+    else:
+        y.scatter_reduce_(0, x1[cut], cv, "amin" if add == "min" else "amax")
+    return y.to(x.dtype)
 
 
 def _planned(x, plan: SpmvRoutePlan, add: str, mul: str, dtype,
@@ -355,21 +309,20 @@ def _planned(x, plan: SpmvRoutePlan, add: str, mul: str, dtype,
     if not plan.values.is_cuda:
         if plan.values.dtype != dtype or x.dtype != dtype:
             raise TypeError(f"planned SpMV: expected {dtype} values and x")
-        return _fold_extras(spmv_planned_plain(x, plan, add, mul), plan,
-                            add)
+        return spmv_planned_plain(x, plan, add, mul)
     dev = plan.values.device
     _cuda.require(x, "x", dtype, dev, plan.n)
     _cuda.require(plan.values, "values", dtype, dev, plan.nnz)
     _cuda.require(plan.indices, "indices", torch.int32, dev, plan.nnz)
-    for name in ("sub_start", "sub_end"):
-        _cuda.require(getattr(plan, name), name, torch.int32, dev,
-                      plan.m_sub)
-    _cuda.require(plan.block_ptr, "block_ptr", torch.int32, dev)
-    y_sub = torch.empty(plan.m_sub, dtype=dtype, device=dev)
-    _cuda.spmv_planned(plan.sub_start, plan.sub_end, plan.block_ptr,
-                       plan.indices, plan.values, x, y_sub, add, mul)
-    launches[counter] += 1
-    return _fold_extras(y_sub, plan, add)
+    _cuda.require(plan.indptr, "indptr", torch.int32, dev, plan.m + 1)
+    _cuda.require(plan.tile_row, "tile_row", torch.int32, dev,
+                  _cuda.spmv_tiles(plan.m, plan.nnz) + 1)
+    y = torch.empty(plan.m, dtype=dtype, device=dev)
+    if plan.ntiles:
+        _cuda.spmv_merge_planned(plan.indptr, plan.tile_row, plan.indices,
+                                 plan.values, x, y, add, mul)
+        launches[counter] += 1
+    return y
 
 
 def spmv_route(x, plan: SpmvRoutePlan) -> torch.Tensor:

@@ -487,7 +487,7 @@ def spmv_arrays(indptr, indices, values, x, m: int) -> torch.Tensor:
     the fused algorithms.  Tiers, chosen by predicate only:
 
       * kernels on, fp32, plan cached   -> spmv_route (planned kernel)
-      * kernels on, fp32, no plan       -> spmv_onehot.spmv (row-warp)
+      * kernels on, fp32, no plan       -> spmv_onehot.spmv (merge path)
       * kernels on, fp64, plan cached   -> spmv_route_ds (fp64 planned)
       * otherwise                       -> gather + index_add_ in torch
     """
@@ -498,7 +498,7 @@ def spmv_arrays(indptr, indices, values, x, m: int) -> torch.Tensor:
         if rp is not None:
             CFG.burble("spmv: tier=route")
             return spmv_route.spmv_route(x.to(torch.float32), rp)
-        CFG.burble("spmv: tier=rowwarp")
+        CFG.burble("spmv: tier=merge")
         return spmv_onehot.spmv(indptr, indices, values,
                                 x.to(torch.float32), m)
     if CFG.GLOBAL.kernels_enabled and values.dtype == torch.float64:

@@ -1,12 +1,14 @@
 """Inputs and comparisons for holding the sort-reduce kernels (K5-K8,
 kernels/sortreduce.py) against their plain versions, operands for the
-fast SpGEMM tier's full-row edge case, and the RMAT graph generator of
-the benchmarks.  Used by chip_smoke.py and the tests, among them
-tests/test_torch_cuda.py; numpy only, nothing here launches a kernel."""
+fast SpGEMM tier's full-row edge case, misaligned copies of the SpMV
+kernels' operands, and the RMAT graph generator of the benchmarks.  Used
+by chip_smoke.py and the tests, among them tests/test_torch_cuda.py;
+nothing here launches a kernel."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .kernels.sortreduce import SENTINEL
 
@@ -32,6 +34,16 @@ def rmat_edges(scale, edge_factor, rng, a=0.57, b=0.19, c=0.19):
         cols |= (right | both).astype(np.int64) << lvl
     perm = rng.permutation(n)
     return perm[rows], perm[cols], n
+
+
+def shifted(t, by):
+    """``t`` as a contiguous view ``by`` elements into a fresh buffer: its
+    16-byte alignment moves by ``by`` elements (the SpMV kernels' 16-byte
+    loads start where their operands reach it)."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    out = buf[by:]
+    out.copy_(t)
+    return out
 
 
 def full_row_operands(C, rng, m=64, n=400):

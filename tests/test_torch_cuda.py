@@ -10,6 +10,8 @@ Imports no JAX, so it runs where only torch is installed:
 Every test is marked ``cuda`` and skips where torch sees no card (a CUDA
 kernel has no CPU mode)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sps
@@ -60,28 +62,86 @@ def _check(got, want, add, rel):
         np.testing.assert_array_equal(g, w)
 
 
-def test_rowwarp_matches_plain(cuda_device):
-    S, ip, ix, v, x = _skewed(np.random.default_rng(0), np.float32,
-                              cuda_device)
-    before = OH.launches
-    got = OH.spmv(ip, ix, v, x, S.shape[0])
+TILE = SPR._cuda.SPMV_TILE
+
+
+def _random_degrees(rng):
+    deg = rng.integers(0, 24, 5000)
+    deg[::13] = 0
+    return deg
+
+
+# row lengths and (indices, values) shifts in elements
+MERGE_CASES = {
+    # row starts at every offset mod 4; both arrays one element past a
+    # 16-byte boundary (16-byte loads after a 3-element head)
+    "misaligned_rows_and_arrays": (_random_degrees, 1, 1),
+    # indices and values reach 16-byte alignment at different elements
+    # (4-byte loads throughout)
+    "indices_shifted_only": (_random_degrees, 1, 0),
+    # one row over three blocks and more
+    "row_spans_3_blocks": (lambda r: np.concatenate(
+        [r.integers(0, 9, 700), [3 * TILE + 100], r.integers(0, 9, 700)]),
+        0, 0),
+    # row 0 ends on the first tile's last step; row 2 (empty) and row 3
+    # start the second; a later row ends just before a tile boundary
+    "tile_ends_at_row_end": (lambda r: np.array(
+        [TILE - 1, 3, 0, 5, TILE - 12, 1, 0, 0, 7]), 0, 0),
+    "m1_1e5": (lambda r: np.array([100_000]), 0, 0),
+    "nnz0": (lambda r: np.zeros(5000, np.int64), 0, 0),
+}
+
+
+def _degree_operands(rng, deg, device, n=200_000):
+    ip = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nnz = int(ip[-1])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    S = sps.csr_matrix((rng.standard_normal(nnz).astype(np.float32),
+                        rng.choice(n, nnz, replace=nnz > n), ip),
+                       shape=(len(deg), n))
+    x = t(rng.standard_normal(n).astype(np.float32))
+    return S, t(ip), t(S.indices.astype(np.int32)), t(S.data), x
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_merge_kernels_match_plain(cuda_device, case):
+    """K2 (spmv_merge_f32) and K1 / K3 min-plus (spmv_merge_planned)
+    against their plain versions where the merge path has its edges:
+    misaligned rows and arrays, a row over three blocks, a tile ending on
+    a row end, one row of 10^5 nonzeros, no nonzeros."""
+    rng = np.random.default_rng(len(case))
+    degrees, si, sv = MERGE_CASES[case]
+    S, ip, ix, v, x = _degree_operands(rng, degrees(rng), cuda_device)
+    ix, v = GT.shifted(ix, si), GT.shifted(v, sv)
+    m = S.shape[0]
+    before = (OH.launches, SPR.launches["spmv_route"])
+    got2 = OH.spmv(ip, ix, v, x, m)
+    p = SPR.build_plan(ip, ix, v, S.shape)
+    got1 = SPR.spmv_route(x, p)
+    got3 = SPR.spmv_route_monoid(x, p, add="min", mul="plus")
     torch.cuda.synchronize()
-    assert OH.launches == before + 1
-    _check(got, OH.spmv_plain(ip, ix, v, x, S.shape[0]), "plus", 1e-5)
+    assert (OH.launches, SPR.launches["spmv_route"]) == \
+        (before[0] + 1, before[1] + 1)
+    _check(got2, OH.spmv_plain(ip, ix, v, x, m), "plus", 1e-5)
+    _check(got1, SPR.spmv_planned_plain(x, p, "plus", "times"), "plus",
+           1e-5)
+    _check(got3, SPR.spmv_planned_plain(x, p, "min", "plus"), "min", 0)
 
 
 @pytest.mark.parametrize("add,mul", [(a, m) for a in ADDS for m in MULS]
                          + [("plus", "fp64")])
 def test_planned_matches_plain(cuda_device, add, mul):
+    """Every instantiation (15 fp32 semirings, fp64) on a matrix whose
+    20000-nonzero row spans 10 tiles."""
     dt = np.float64 if mul == "fp64" else np.float32
     S, ip, ix, v, x = _skewed(np.random.default_rng(1), dt, cuda_device)
-    p = SPR.build_plan(ip, ix, v, S.shape, row_cap=16, block_cost=64)
+    p = SPR.build_plan(ip, ix, v, S.shape)
     if mul == "fp64":
         got, mul = SPR.spmv_route_ds(x, p), "times"
     else:
         got = SPR.spmv_route_monoid(x, p, add=add, mul=mul)
     torch.cuda.synchronize()
-    want = SPR._fold_extras(SPR.spmv_planned_plain(x, p, add, mul), p, add)
+    want = SPR.spmv_planned_plain(x, p, add, mul)
     _check(got, want, add, 1e-12 if dt == np.float64 else 1e-5)
 
 
@@ -97,6 +157,8 @@ def test_wrappers_refuse_bad_operands(cuda_device):
         SPR.spmv_route(x[:-1].contiguous(), p)
     with pytest.raises(TypeError):
         SPR.spmv_route_ds(x.double(), p)
+    with pytest.raises(ValueError):                  # a tile missing
+        SPR.spmv_route(x, dataclasses.replace(p, tile_row=p.tile_row[:-1]))
 
 
 # ---------------------------------------------------------------------------
@@ -244,11 +306,13 @@ def test_permute_gather_matches_plain(cuda_device, n, dtype):
 
 
 def test_fold_is_bitwise_repeatable(cuda_device):
-    """The planned SpMV folds split rows without atomics: two calls give
-    the same bits."""
+    """K2 and the planned SpMV fold rows cut between tiles without
+    atomics: two calls give the same bits."""
     S, ip, ix, v, x = _skewed(np.random.default_rng(4), np.float32,
                               cuda_device)
-    p = SPR.build_plan(ip, ix, v, S.shape, row_cap=16, block_cost=64)
+    assert torch.equal(OH.spmv(ip, ix, v, x, S.shape[0]),
+                       OH.spmv(ip, ix, v, x, S.shape[0]))
+    p = SPR.build_plan(ip, ix, v, S.shape)
     for add, mul in (("plus", "times"), ("min", "plus")):
         a = SPR.spmv_route_monoid(x, p, add=add, mul=mul)
         b = SPR.spmv_route_monoid(x, p, add=add, mul=mul)

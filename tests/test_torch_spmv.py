@@ -5,6 +5,7 @@ On the CPU every wrapper runs its kernel's plain torch version;
 tests/test_torch_cuda.py holds the CUDA kernels against those plain
 versions on a card."""
 
+import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -65,8 +66,8 @@ def _check(got, want, add, rel):
     """Exact for min/max (same products, no rounding); rel*max|y| for
     plus (summation order differs)."""
     if add == "plus":
-        bound = rel * float(np.abs(want).max())
-        assert float(np.abs(got - want).max()) <= bound
+        bound = rel * float(np.abs(want).max(initial=0.0))
+        assert float(np.abs(got - want).max(initial=0.0)) <= bound
     else:
         np.testing.assert_array_equal(got, want)
 
@@ -87,34 +88,100 @@ def test_rowwarp_plain_matches_jax_xla(xla_path):
     assert OH.launches == 0          # CPU tensors never launch
 
 
-def test_plan_splits_rows_and_balances_blocks():
-    rng = np.random.default_rng(1)
-    S = _skewed_csr(rng)
+TILE = SPR._cuda.SPMV_TILE
+TILING_CASES = {
+    "skewed": None,
+    "m0": [],
+    "nnz0": [0] * 5000,
+    "empty_rows_then_hub": [0] * 3000 + [4000] + [0] * 100,
+    "one_row_1e5": [100_000],
+    "tile_ends_at_row_end": [TILE - 1, 3, 0, 5],
+}
+
+
+def _degree_csr(deg, rng, n=300, dtype=np.float32):
+    """A CSR matrix with exactly these row lengths (columns may repeat)."""
+    ip = np.concatenate([[0], np.cumsum(np.asarray(deg, np.int64))])
+    nnz = int(ip[-1])
+    return sps.csr_matrix((rng.standard_normal(nnz).astype(dtype),
+                           rng.integers(0, n, nnz), ip),
+                          shape=(len(deg), n))
+
+
+@pytest.mark.parametrize("case", sorted(TILING_CASES))
+def test_plan_tiles_cover_walk(case):
+    """The tiles chain along the merge path: each nonzero is taken and
+    each row ended by exactly one tile, the one holding its step; the
+    plain version over them matches the reference."""
+    rng = np.random.default_rng(8)
+    deg = TILING_CASES[case]
+    S = _skewed_csr(rng) if deg is None else _degree_csr(deg, rng)
     ip, ix, v = _csr_t(S)
-    p = SPR.build_plan(ip, ix, v, S.shape, row_cap=32, block_cost=256)
-    counts = np.diff(S.indptr)
-    assert p.m_sub == S.shape[0] + int(np.maximum(
-        -(-counts // 32) - 1, 0).sum())
-    assert p.extra_owner is not None and p.nnz == S.nnz
-    lens = (p.sub_end - p.sub_start).numpy()
-    assert lens.max() <= 32 and lens.sum() == S.nnz
-    bp = p.block_ptr.numpy()
-    assert bp[0] == 0 and bp[-1] == p.m_sub and (np.diff(bp) > 0).all()
-    cost = np.add.reduceat(lens + SPR.ROW_COST, bp[:-1])
-    assert cost.max() <= 256 + 32 + SPR.ROW_COST
-
-
-@pytest.mark.parametrize("add,mul", [(a, m) for a in ADDS for m in MULS])
-def test_planned_plain_matches_unplanned(add, mul):
-    """Every fp32 instantiation's plain version walks a plan whose rows are
-    forced to split (row_cap 16) and matches the unplanned product."""
-    rng = np.random.default_rng(2)
-    S = _skewed_csr(rng)
+    p = SPR.build_plan(ip, ix, v, S.shape)
+    m, nnz = S.shape[0], S.nnz
+    tr = p.tile_row.numpy().astype(np.int64)
+    assert p.nnz == nnz
+    assert p.ntiles == -(-(m + nnz) // TILE) and tr[0] == 0 and tr[-1] == m
+    yk = np.minimum(np.arange(p.ntiles + 1) * TILE, m + nnz) - tr
+    assert yk[0] == 0 and yk[-1] == nnz
+    assert (np.diff(tr) >= 0).all() and (np.diff(yk) >= 0).all()
+    ipl = S.indptr.astype(np.int64)          # each cut lies on the walk
+    assert (ipl[tr] <= yk).all()
+    inner = tr < m
+    assert (yk[inner] <= ipl[tr[inner] + 1]).all()
+    np.testing.assert_array_equal(             # row r ends in its step's tile
+        np.searchsorted(tr, np.arange(m), "right") - 1,
+        (ipl[1:] + np.arange(m)) // TILE)
     x = rng.standard_normal(S.shape[1]).astype(np.float32)
+    xt = torch.from_numpy(x)
+    got = SPR.spmv_route(xt, p).numpy()
+    _check(got, _reference(S.astype(np.float64), x.astype(np.float64),
+                           "plus", "times"), "plus", 1e-5)
+    got = SPR.spmv_route_monoid(xt, p, add="min", mul="times").numpy()
+    _check(got, _reference(S, x, "min", "times"), "min", 0)
+
+
+def test_broken_tiling_shows_in_result():
+    """The plain version walks the tiles it is given: a tiling that stops
+    short leaves its rows NaN, and a cut moved off the walk moves a
+    product into the wrong row."""
+    rng = np.random.default_rng(9)
+    S = _degree_csr([900, 700, 3, 0, 2500, 1, 5], rng)
     ip, ix, v = _csr_t(S)
-    p = SPR.build_plan(ip, ix, v, S.shape, row_cap=16, block_cost=64)
-    assert p.m_sub > p.m
-    if (add, mul) == ("plus", "times"):
+    x = torch.from_numpy(rng.standard_normal(S.shape[1]).astype(np.float32))
+    p = SPR.build_plan(ip, ix, v, S.shape)
+    good = SPR.spmv_route(x, p)
+    assert not torch.isnan(good).any()
+    short = p.tile_row.clone()
+    short[-1] = S.shape[0] - 2
+    y = SPR.spmv_route(x, dataclasses.replace(p, tile_row=short))
+    assert torch.isnan(y[-2:]).all() and torch.equal(y[:-3], good[:-3])
+    moved = p.tile_row.clone()
+    assert moved[1] == 4                 # the cut inside row 4 ...
+    moved[1] = 3                         # ... moved back to row 3's end
+    y = SPR.spmv_route(x, dataclasses.replace(p, tile_row=moved))
+    assert not torch.allclose(y, good)
+
+
+@pytest.mark.parametrize("add,mul", [(a, m) for a in ADDS for m in MULS]
+                         + [("plus", "fp64")])
+def test_planned_plain_matches_unplanned(add, mul):
+    """Every instantiation's plain version (15 fp32 semirings, fp64
+    plus-times) walks a plan whose 3000-nonzero row is cut between tiles
+    and matches the unplanned product."""
+    rng = np.random.default_rng(2)
+    dt = np.float64 if mul == "fp64" else np.float32
+    deg = rng.integers(0, 6, 300)
+    deg[::17] = 0
+    deg[[5, 40]] = (3000, 700)
+    S = _degree_csr(deg, rng, n=250, dtype=dt)
+    x = rng.standard_normal(S.shape[1]).astype(dt)
+    ip, ix, v = _csr_t(S)
+    p = SPR.build_plan(ip, ix, v, S.shape)
+    assert p.ntiles > 1 and (p.tile_row[1:-1].numpy() == 5).any()
+    if mul == "fp64":
+        got, mul = SPR.spmv_route_ds(torch.from_numpy(x), p), "times"
+    elif (add, mul) == ("plus", "times"):
         got = SPR.spmv_route(torch.from_numpy(x), p)
         _check(got.numpy(), OH.spmv_plain(ip, ix, v, torch.from_numpy(x),
                                           S.shape[0]).numpy(), add, 1e-5)
@@ -147,7 +214,7 @@ def test_planned_fp64_matches_jax_xla(xla_path):
 
 def test_spmv_arrays_tiers(xla_path):
     """Tier choice by predicate: plan cached -> planned; no plan ->
-    row-warp; kernels off -> plain torch.  All agree to 1e-5*max|y|."""
+    merge path; kernels off -> plain torch.  All agree to 1e-5*max|y|."""
     rng = np.random.default_rng(4)
     S = _skewed_csr(rng)
     x = torch.from_numpy(rng.standard_normal(S.shape[1]).astype(np.float32))
@@ -166,47 +233,46 @@ def test_spmv_arrays_tiers(xla_path):
 
 
 @pytest.mark.parametrize("add", ADDS)
-def test_split_rows_fold_without_atomics(add):
-    """Hub rows split into many sub-rows fold through the owner table:
-    the same result as the index_add_ / scatter_reduce_ fold it replaced
-    and as a per-row numpy reduce, and the same bits on every call."""
+def test_cut_rows_fold_in_tile_order(add):
+    """Hub rows cut across many tiles (the longest 8 times) fold their
+    carries in tile order: the same result as a per-row numpy reduce, and
+    the same bits on every call."""
     rng = np.random.default_rng(41)
     deg = rng.integers(0, 5, 200)
-    deg[[3, 50, 51, 199]] = (900, 2000, 40, 1333)        # 4 hubs, 1 short
+    deg[[3, 50, 51, 199]] = (9000, 20000, 40, 13333)     # 4 hubs, 1 short
     rows = np.repeat(np.arange(200), deg)
     S = sps.csr_matrix((rng.standard_normal(rows.size).astype(np.float32),
-                        (rows, rng.integers(0, 5000, rows.size))),
-                       shape=(200, 5000))
+                        (rows, rng.integers(0, 50_000, rows.size))),
+                       shape=(200, 50_000))
     S.sum_duplicates()
-    ip, ix, v = (torch.from_numpy(a) for a in
-                 (S.indptr.astype(np.int32), S.indices.astype(np.int32),
-                  S.data))
-    p = SPR.build_plan(ip, ix, v, S.shape, row_cap=16, block_cost=64)
-    assert p.fold_table.shape[0] == 4 and p.fold_table.shape[1] > 100
-    x = torch.from_numpy(rng.standard_normal(5000).astype(np.float32))
-    y_sub = SPR.spmv_planned_plain(x, p, add, "times")
-    y = SPR._fold_extras(y_sub, p, add)
-    assert torch.equal(y, SPR._fold_extras(y_sub, p, add))
+    ip, ix, v = _csr_t(S)
+    p = SPR.build_plan(ip, ix, v, S.shape)
+    cut = p.tile_row[1:-1].numpy()                  # rows open at tile ends
+    assert np.bincount(cut).max() >= 8 and set(cut) >= {3, 50, 199}
+    x = torch.from_numpy(rng.standard_normal(50_000).astype(np.float32))
+    y = SPR.spmv_route_monoid(x, p, add=add, mul="times")
     assert torch.equal(y, SPR.spmv_route_monoid(x, p, add=add, mul="times"))
-    old = y_sub[:p.m].clone()                 # the atomic fold it replaced
-    extra = y_sub[p.m:p.m_sub]
-    if add == "plus":
-        old.index_add_(0, p.extra_owner, extra)
-    else:
-        old.scatter_reduce_(0, p.extra_owner, extra,
-                            "amin" if add == "min" else "amax")
     prod = S.multiply(x.numpy()[None, :]).tocsr()
     ufunc = {"plus": np.add, "min": np.minimum, "max": np.maximum}[add]
     ref = np.array([ufunc.reduce(prod.data[a:b].astype(np.float64))
                     if b > a else SPR.MONOID_IDENTITY[add]
                     for a, b in zip(prod.indptr[:-1], prod.indptr[1:])])
     if add == "plus":
-        tol = 1e-5 * np.abs(ref).max()
-        assert np.abs(y.numpy() - ref).max() <= tol
-        assert np.abs(y.numpy() - old.numpy()).max() <= tol
+        assert np.abs(y.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
     else:
-        np.testing.assert_array_equal(y.numpy(), old.numpy())
         np.testing.assert_array_equal(y.numpy(), ref.astype(np.float32))
+
+
+def test_load_plan_refuses_v1_plan(tmp_path):
+    """A plan of the port's earlier format (sub-rows in row blocks) is
+    refused with a message naming it, not run through the new kernels."""
+    path = str(tmp_path / "v1.npz")
+    np.savez(path, format=np.array("graphblas_tpu_torch.spmv_plan.v1"),
+             shape=np.array([4, 4, 4, 4, 512]), sub_start=np.zeros(4),
+             sub_end=np.zeros(4), block_ptr=np.array([0, 4]),
+             extra_owner=np.zeros(0), indptr_digest=np.array("x"))
+    with pytest.raises(TE.InvalidValue, match="spmv_plan.v1"):
+        SPR.load_plan(path)
 
 
 def test_plan_save_load_and_optimize(tmp_path):
@@ -219,8 +285,8 @@ def test_plan_save_load_and_optimize(tmp_path):
                       build=False)
     p1 = SPR.load_plan(path)
     assert p1.values is None and p1.matches(Ao.indptr, Ao.shape)
-    for f in ("sub_start", "sub_end", "block_ptr"):
-        assert torch.equal(getattr(p0, f), getattr(p1, f))
+    assert p1.nnz == p0.nnz
+    assert torch.equal(p0.tile_row, p1.tile_row)
     # a fresh matrix with the same structure reloads the saved plan
     B = gt.Matrix.from_scipy(S)
     Bo = B.optimize(plan_path=path)
