@@ -6,7 +6,8 @@
 Phases, each printing one line (more for the per-graph phases):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile graphblas_tpu_torch/csrc/{spmv,sortreduce,permute}.cu,
-     one nvcc each, started together;
+     one nvcc each, started together; ptxas's registers, spills and shared
+     memory of the C = 32768 sort-reduce kernel;
   3. kernels: every kernel against its plain torch version on the card —
      the SpMV kernels K1-K4 at small random sizes with empty rows and one
      row of 10^5 nonzeros (exact for min/max, 1e-5*max|y| for fp32 plus,
@@ -15,8 +16,11 @@ Phases, each printing one line (more for the per-graph phases):
      alone), the sort-reduce kernels K5-K8 on runs of
      2048 and 8192 slots and K5/K6 on runs of 32768 (the cluster kernel)
      with many duplicate keys, empty, all-SENTINEL, full runs and one key
-     repeated over a whole run (keys exact; values exact for int32, bool,
-     min/max and K7, 1e-5*max|v| for fp32 plus), K9 on a random
+     repeated over a whole run, and on the cluster kernel's edge runs
+     (testing.sr_edge_runs) with the planes aligned and one element past a
+     16-byte boundary (keys exact; values exact for int32, bool, min/max
+     and K7, 1e-5*max|v| for fp32 plus), K5/K6 at 32768 twice bitwise
+     equal (fp32 plus), K9 on a random
      permutation of 2^24 + 777 fp32 elements (exact), and two K2, two K1
      and two K3 min-plus calls at graph (b) bitwise equal;
   4. SpMV main path at real size through the public API on two graphs —
@@ -52,7 +56,7 @@ Phases, each printing one line (more for the per-graph phases):
  10. where the SpGEMM time goes: one warm A*A (a) and one warm
      triangle_count (b), with the SELL phases timed on the host, then
      under torch.profiler (device busy share, device time by operator
-     and by kernel);
+     and by kernel, and each sort-reduce kernel's);
  11. the fast SpGEMM tier at full size, which takes the products SELL
      declines (RMAT-18's A*A, 2.9e9 products: a slot domain beyond
      int32), the launch counts set to 0 before and read after: RMAT-18
@@ -62,7 +66,10 @@ Phases, each printing one line (more for the per-graph phases):
      K5 launched at every C in (128 ... 32768) and K6 at 32768; wall
      times cold and warm; one warm RMAT-18 A*A traced as in phase 10;
  12. K5 and K6 at C = 32768 and their plain versions on the fast tier's
-     first inputs at that C, beside the bound of their bytes;
+     first inputs at that C, beside the bound of their bytes; the kernel's
+     most co-resident clusters, registers, spills and shared memory on
+     this card, and one torch.sort of the same runs (a yardstick: a sort
+     alone, not the function);
  13. K9: global_permute of graph (a)'s CSR -> CSC value permutation
      (launches counted), exact against the plain version and scipy's CSC
      values, timed beside its bound and one torch.take.
@@ -73,6 +80,7 @@ without one.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -107,9 +115,10 @@ KERNELS = {   # key: (name, source, TPU kernel replaced)
            "graphblas_tpu/kernels/sortreduce.py:360"),
     "K8": ("sort_reduce_kernel + key2 (sort_reduce_rows_wide)", SR_SRC,
            "graphblas_tpu/kernels/sortreduce.py:435"),
-    "K5@32768": ("sort_reduce_cluster_kernel (sort_reduce_rows, C=32768)",
-                 SR_SRC, "graphblas_tpu/kernels/sortreduce.py:252"),
-    "K6@32768": ("sort_reduce_cluster_kernel + tokens "
+    "K5@32768": ("sort_reduce_cluster_regs_kernel (sort_reduce_rows, "
+                 "C=32768)", SR_SRC,
+                 "graphblas_tpu/kernels/sortreduce.py:252"),
+    "K6@32768": ("sort_reduce_cluster_regs_kernel + tokens "
                  "(sort_reduce_rows_tok, C=32768)", SR_SRC,
                  "graphblas_tpu/kernels/sortreduce.py:465"),
     "K9": ("permute_gather_32 (global_permute, tile_permute, "
@@ -117,6 +126,7 @@ KERNELS = {   # key: (name, source, TPU kernel replaced)
            "graphblas_tpu/kernels/static_route.py:580"),
 }
 BIG_C = 32768
+CLUSTER_KERNEL = "sort_reduce_cluster_regs_kernel"
 SR_WRAPPERS = {"K5": "sort_reduce_rows", "K6": "sort_reduce_rows_tok",
                "K7": "sort_reduce_pair1", "K8": "sort_reduce_rows_wide"}
 UNIFORM_CNNZ = 268_406_919   # the compiled SuiteSparse's answers
@@ -130,6 +140,26 @@ def card_line():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def cluster_ptxas(log):
+    """ptxas's report (-Xptxas -v) of every instance of the C = 32768
+    kernel: a list of (registers, spill store bytes, spill load bytes,
+    static shared-memory bytes)."""
+    out, cur, spill = [], False, (0, 0)
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = CLUSTER_KERNEL in ln
+        elif cur and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            spill = (int(m[1]), int(m[2]))
+        elif cur and "registers" in ln:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out.append((int(re.search(r"Used (\d+) registers", ln)[1]),
+                        *spill, int(sm[1]) if sm else 0))
+            cur = False
+    return out
 
 
 def max_err(got, want, add, tol):
@@ -528,23 +558,30 @@ def phase_sr_kernels(errs):
         n_cmp += 1
 
     for C in (2048, 8192, BIG_C):
-        keys = GT.sr_runs(rng, C)
-        vals = {k: GT.sr_values(rng, keys.size, k)
-                for k in ("f32", "i32", "bool")}
-        toks = cu(GT.sr_tokens(rng, keys, C))
-        for kind, mon in (("i32", "PLUS"), ("f32", "PLUS"), ("f32", "MIN"),
-                          ("f32", "MAX"), ("bool", "LOR")):
-            args = (cu(keys), cu(vals[kind]), C, getattr(TM, mon))
-            exact = not (kind == "f32" and mon == "PLUS")
-            kw = {"logical": kind == "bool"}
-            big = "@32768" if C == BIG_C else ""
-            check("K5" + big, SRD.sort_reduce_rows,
-                  SRD.sort_reduce_rows_plain, args, kw, exact)
-            for want in (True, False):
-                check("K6" + big, SRD.sort_reduce_rows_tok,
-                      SRD.sort_reduce_rows_tok_plain,
-                      args[:2] + (toks,) + args[2:],
-                      dict(kw, want_token=want), exact)
+        # (keys, shift): at 32768 also the cluster kernel's edge runs, with
+        # the planes aligned and one element past a 16-byte boundary
+        sets = [(GT.sr_runs(rng, C), 0)]
+        if C == BIG_C:
+            sets += [(GT.sr_edge_runs(rng, C), by) for by in (0, 1)]
+        for keys, by in sets:
+            on = lambda a: GT.shifted(cu(a), by)  # noqa: E731
+            vals = {k: on(GT.sr_values(rng, keys.size, k))
+                    for k in ("f32", "i32", "bool")}
+            toks = on(GT.sr_tokens(rng, keys, C))
+            for kind, mon in (("i32", "PLUS"), ("f32", "PLUS"),
+                              ("f32", "MIN"), ("f32", "MAX"),
+                              ("bool", "LOR")):
+                args = (on(keys), vals[kind], C, getattr(TM, mon))
+                exact = not (kind == "f32" and mon == "PLUS")
+                kw = {"logical": kind == "bool"}
+                big = "@32768" if C == BIG_C else ""
+                check("K5" + big, SRD.sort_reduce_rows,
+                      SRD.sort_reduce_rows_plain, args, kw, exact)
+                for want in (True, False):
+                    check("K6" + big, SRD.sort_reduce_rows_tok,
+                          SRD.sort_reduce_rows_tok_plain,
+                          args[:2] + (toks,) + args[2:],
+                          dict(kw, want_token=want), exact)
         if C == BIG_C:          # K7 and K8 take C <= 8192
             continue
         kh, kl, tw = GT.sr_wide_keys(rng, C)
@@ -553,7 +590,7 @@ def phase_sr_kernels(errs):
             for tk, want in ((None, True), (tw, True), (tw, False)):
                 check("K8", SRD.sort_reduce_rows_wide,
                       SRD.sort_reduce_rows_wide_plain,
-                      (cu(kh), cu(kl), cu(vals[kind]), C, getattr(TM, mon)),
+                      (cu(kh), cu(kl), vals[kind], C, getattr(TM, mon)),
                       dict(toks=tk, want_token=want),
                       not (kind == "f32" and mon == "PLUS"))
         pk = cu(GT.sr_pair1_keys(rng, C))
@@ -561,6 +598,18 @@ def phase_sr_kernels(errs):
             check("K7", SRD.sort_reduce_pair1, SRD.sort_reduce_pair1_plain,
                   (pk, C),
                   dict(want_token=want), True)
+    # K5 and K6 at 32768 (fp32 plus) twice on the same edge runs: the same
+    # bits (a fixed reduction tree, no atomics)
+    keys = GT.sr_edge_runs(rng, BIG_C)
+    kt, vt = cu(keys), cu(GT.sr_values(rng, keys.size, "f32"))
+    tt = cu(GT.sr_tokens(rng, keys, BIG_C))
+    for key, fn, args in (
+            ("K5", SRD.sort_reduce_rows, (kt, vt, BIG_C, TM.PLUS)),
+            ("K6", SRD.sort_reduce_rows_tok, (kt, vt, tt, BIG_C, TM.PLUS))):
+        a, b = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+            f"{key}@{BIG_C} not bitwise repeatable"
     return n_cmp
 
 
@@ -958,6 +1007,26 @@ def phase_sr_times(calls, card, errs, tag="8 sort-reduce times"):
     return out
 
 
+def phase_cluster(calls, card):
+    """Phase 12: the C = 32768 kernel's resources on this card (most
+    clusters resident at once, registers, spills, shared memory) and one
+    torch.sort of the K5 inputs' runs, a yardstick printed only: a sort
+    alone, not the segmented sort-reduce."""
+    import torch
+    from graphblas_tpu_torch.kernels import _cuda
+    keys = calls[f"K5@{BIG_C}"][0][0]
+    ts = time_ms(lambda: torch.sort(keys.view(-1, BIG_C), dim=1))
+    print(f"[12 cluster kernel] {card} | " + " | ".join(
+        f"{k}@{BIG_C}: {v['max_active_clusters']} clusters resident at "
+        f"most, {v['registers']} registers, {v['local_bytes']} B local "
+        f"(spills), shared {v['static_smem']} B static + "
+        f"{v['dynamic_smem']} B dynamic"
+        for k, v in (("K5", _cuda.sort_reduce_cluster_info(False)),
+                     ("K6", _cuda.sort_reduce_cluster_info(True))))
+        + f" | torch.sort(keys.view(-1, {BIG_C}), dim=1) {ts:.3f} ms on "
+        f"the K5 inputs (sort only, not the function)", flush=True)
+
+
 SPGEMM_PHASES = {"spgemm_sell": ("_prep", "_pass1", "_counts", "_pass2"),
                  "mxm": ("_spgemm_block",)}
 # the fast tier: whole blocks, within them the expansion + sort-reduce of
@@ -1041,11 +1110,17 @@ def traced(label, fn, card, phases=SPGEMM_PHASES, tag="10 trace"):
                         for e in ops[:6])
     top_k = ", ".join(f"{e.key[:48]} {_dev_us(e) / 1e3:.1f} ms x{e.count}"
                       for e in kern[:6])
+    # the sort-reduce kernels (K5-K8), wherever they rank
+    srk = ", ".join(
+        f"{e.key.replace('(anonymous namespace)::', '').split('(')[0]} "
+        f"{_dev_us(e) / 1e3:.1f} ms x{e.count}" for e in kern
+        if "sort_reduce" in e.key or "sort_pair1" in e.key)
     print(f"[{tag} {label}] {card} | wall {wall:.3f} s; host-timed "
           f"phases " + " ".join(f"{k}={v:.3f}s" for k, v in spent.items())
           + f" | profiled wall {wall_p:.3f} s, device busy {busy:.3f} s "
           f"(idle {1 - busy / wall_p:.1%}) | device time by operator: "
-          f"{top_ops} | by kernel: {top_k}", flush=True)
+          f"{top_ops} | by kernel: {top_k} | sort-reduce kernels: {srk}",
+          flush=True)
     return 1 - busy / wall_p
 
 
@@ -1084,6 +1159,13 @@ def main():
           f"{', '.join(p.name for p in libs.values())}; "
           f"ptxas: {len(regs)} kernels, "
           f"{max((ln for ln in regs), key=len, default='')}", flush=True)
+    cp = cluster_ptxas(_cuda.build_log("sortreduce"))
+    assert cp, "no ptxas report of the C = 32768 kernel"
+    print(f"[2 build] ptxas {CLUSTER_KERNEL}: {len(cp)} instances, "
+          f"registers {min(c[0] for c in cp)}-{max(c[0] for c in cp)}, "
+          f"spill stores <= {max(c[1] for c in cp)} B, spill loads <= "
+          f"{max(c[2] for c in cp)} B, static shared memory "
+          f"{max(c[3] for c in cp)} B", flush=True)
     # 3. kernels vs plain versions
     graphs = {"a (bench.py uniform 2^20 x16)": bench_graph(),
               "b (RMAT-20 x16)": rmat_graph()}
@@ -1097,7 +1179,9 @@ def main():
           f"versions (min/max exact, fp32 plus <= {FP32_TOL}*max|y|, fp64 "
           f"<= {FP64_TOL}*max|y|) at {shape[0]}x{shape[1]}, max row "
           f"{max_row}; {n_sr} sort-reduce comparisons at C = 2048, 8192, "
-          f"32768 (K5/K6 only; keys, ints, bool, min/max and K7 exact, "
+          f"32768 (K5/K6 only, also on edge runs aligned and one element "
+          f"past a 16-byte boundary, and twice bitwise equal; keys, ints, "
+          f"bool, min/max and K7 exact, "
           f"fp32 plus <= {FP32_TOL}*max|v|); K9 exact on {n_perm} "
           f"elements; K2, K1 and K3 min-plus bitwise repeatable at graph "
           f"(b) ({n_tiles} tiles, {n_cuts} of them start inside a row); "
@@ -1151,10 +1235,10 @@ def main():
     for key, name in (("K5", "sort_reduce_rows"),
                       ("K6", "sort_reduce_rows_tok")):
         counts[f"{key}@{BIG_C}"] = by_cap[(name, BIG_C)]
-    ta.update(phase_sr_times(
-        {f"{k}@{BIG_C}": rec.by_cap[(k, BIG_C)] for k in ("K5", "K6")},
-        card, errs, "12 sort-reduce times C=32768"))
-    del rec
+    big = {f"{k}@{BIG_C}": rec.by_cap[(k, BIG_C)] for k in ("K5", "K6")}
+    ta.update(phase_sr_times(big, card, errs, "12 sort-reduce times C=32768"))
+    phase_cluster(big, card)
+    del rec, big
     # 13. K9
     counts["K9"], ta["K9"] = phase_permute(card, errs)
     # result lines

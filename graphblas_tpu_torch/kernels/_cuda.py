@@ -107,6 +107,8 @@ def _bind_sortreduce(so) -> None:
     so.gb_sort_reduce.restype = ctypes.c_int
     so.gb_sort_pair1.argtypes = [P, P, I, I, I, P]
     so.gb_sort_pair1.restype = ctypes.c_int
+    so.gb_sort_reduce_cluster_info.argtypes = [I, P]
+    so.gb_sort_reduce_cluster_info.restype = ctypes.c_int
 
 
 def _bind_permute(so) -> None:
@@ -234,6 +236,18 @@ def sort_pair1(keys, out, C: int, want_token: bool) -> None:
             keys.data_ptr(), out.data_ptr(), keys.numel() // C, C,
             int(bool(want_token)), _stream(dev))
     _check(err, f"sort_pair1<C={C}>", "sortreduce")
+
+
+def sort_reduce_cluster_info(tok: bool) -> dict:
+    """The C = 32768 kernel (fp32 PLUS, with or without tokens) on the
+    current card: the most clusters resident at once, registers and local
+    memory (spills) a thread, static and dynamic shared memory a block."""
+    out = (ctypes.c_int32 * 5)()
+    err = lib("sortreduce").gb_sort_reduce_cluster_info(
+        int(bool(tok)), ctypes.cast(out, ctypes.c_void_p))
+    _check(err, "sort_reduce_cluster_info", "sortreduce")
+    return dict(zip(("max_active_clusters", "registers", "local_bytes",
+                     "static_smem", "dynamic_smem"), out))
 
 
 def permute_gather_32(x, perm, out) -> None:

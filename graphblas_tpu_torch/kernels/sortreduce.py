@@ -25,9 +25,10 @@ tensors (and counts the launch in ``launches`` and, by C, in
 ``launches_by_cap``) and runs its plain torch version (``*_plain``) for
 CPU tensors.  Values are int32 (bool carried as 0/1 with ``logical=True``)
 or float32.  K5 and K6 take every C in ``CAPS``; C = 32768 runs on a
-cluster of four thread blocks (its run does not fit one block's shared
-memory).  K7 and K8 take C <= 8192 (``CAPS_ONE_BLOCK``): no caller uses
-them at 32768 in either package.
+cluster of four thread blocks that sort and scan in registers (warp
+shuffles; shared memory only to change layouts and to exchange between
+the blocks).  K7 and K8 take C <= 8192 (``CAPS_ONE_BLOCK``): no caller
+uses them at 32768 in either package.
 """
 
 from __future__ import annotations

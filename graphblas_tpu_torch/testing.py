@@ -84,6 +84,35 @@ def sr_runs(rng, C, runs=64, hi=40):
     return k.reshape(-1).astype(np.int32)
 
 
+def sr_edge_runs(rng, C=32768):
+    """int32 keys of C-slot runs (C = 32768 by default, the cluster
+    kernel's; any multiple of 8192 works) at the edges of its layout, each
+    run shuffled unless said otherwise:
+      0. group boundaries exactly at multiples of 8 (a thread's slots),
+         256 (a warp's) and 8192 (a block's) in the sorted run;
+      1. one group over sorted slots [9000, 25000): it spans three of the
+         four blocks;
+      2. all keys distinct: a permutation of [0, C);
+      3. descending keys (groups of 3), not shuffled;
+      4. keys 2^31 - 2 (100 of them) beside SENTINEL pads and large keys;
+      5. SENTINEL everywhere but the last slot (not shuffled)."""
+    q = C // 4
+    s = np.arange(C, dtype=np.int64)
+    bounds = np.where(s < q // 4, s // 8,
+                      np.where(s < 2 * q, 4096 + s // 256, 65536 + s // q))
+    span = np.concatenate([rng.integers(0, 9, 9000), np.full(16000, 9),
+                           rng.integers(10, 100, C - 25000)])
+    big = np.full(C, SENTINEL, np.int64)
+    big[:100] = SENTINEL - 1
+    big[100:20000] = rng.integers(1 << 30, SENTINEL - 1, 19900)
+    last = np.full(C, SENTINEL, np.int64)
+    last[-1] = 12345
+    runs = [bounds, span, rng.permutation(C), (C - 1 - s) // 3, big, last]
+    for r in (0, 1, 4):
+        rng.shuffle(runs[r])
+    return np.concatenate(runs).astype(np.int32)
+
+
 def sr_values(rng, n, kind):
     """``n`` values: f32 normal, bool carried as 0/1 int32, or small
     int32."""

@@ -242,9 +242,11 @@ def test_sort_reduce_wrappers_refuse_bad_operands(cuda_device):
                              2048, TM.PLUS)
 
 
-@pytest.mark.parametrize("kind,mon", [("i32", "PLUS"), ("f32", "PLUS"),
-                                      ("f32", "MIN"), ("bool", "LOR"),
-                                      ("i32", "MAX")])
+CLUSTER_MONOIDS = [("i32", "PLUS"), ("f32", "PLUS"), ("f32", "MIN"),
+                   ("bool", "LOR"), ("i32", "MAX")]
+
+
+@pytest.mark.parametrize("kind,mon", CLUSTER_MONOIDS)
 def test_sort_reduce_cluster_matches_plain(cuda_device, kind, mon):
     """K5 and K6 at C = 32768 (a cluster of four blocks per run): run 2
     repeats one key over all 32768 slots, so the scan's carry crosses
@@ -270,6 +272,34 @@ def test_sort_reduce_cluster_matches_plain(cuda_device, kind, mon):
         GT.sr_err(got, SRD.sort_reduce_rows_tok_plain(*a2, want_token=want,
                                                       **kw),
                   _exact(kind, mon))
+
+
+@pytest.mark.parametrize("kind,mon", CLUSTER_MONOIDS)
+def test_sort_reduce_cluster_edge_runs(cuda_device, kind, mon):
+    """K5 and K6 at C = 32768 on the cluster kernel's edge runs
+    (``testing.sr_edge_runs``), with the planes 16-byte aligned and one
+    element past a 16-byte boundary (4-byte loads), each called twice:
+    the same bits."""
+    C = 32768
+    rng = np.random.default_rng(7 + len(kind) + len(mon))
+    t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    keys = GT.sr_edge_runs(rng, C)
+    vals = GT.sr_values(rng, keys.size, kind)
+    toks = GT.sr_tokens(rng, keys, C)
+    kw = {"logical": kind == "bool"}
+    for by in (0, 1):
+        k, v, tk = (GT.shifted(t(a), by) for a in (keys, vals, toks))
+        calls = [(SRD.sort_reduce_rows, SRD.sort_reduce_rows_plain,
+                  (k, v, C, getattr(TM, mon)), kw)]
+        calls += [(SRD.sort_reduce_rows_tok, SRD.sort_reduce_rows_tok_plain,
+                   (k, v, tk, C, getattr(TM, mon)),
+                   dict(kw, want_token=want)) for want in (True, False)]
+        for fn, plain, args, kwargs in calls:
+            got = fn(*args, **kwargs)
+            again = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            GT.sr_err(got, plain(*args, **kwargs), _exact(kind, mon))
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_sort_reduce_cluster_refuses_k7_k8(cuda_device):

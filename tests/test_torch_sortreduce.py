@@ -1,7 +1,9 @@
 """Port parity: the plain versions of the sort-reduce kernels K5-K8
 (graphblas_tpu_torch.kernels.sortreduce) against the JAX package's
 Pallas kernels run in interpret mode, at C in {128, 512, 2048}, and K5/K6
-at C = 32768 (the fast tier's top class) against a numpy sort-and-group.
+at C = 32768 (the fast tier's top class) against a numpy sort-and-group,
+also on the edge runs of the C = 32768 kernel's layout
+(``testing.sr_edge_runs``) against a vectorised numpy reference.
 
 Inputs (numpy, from a seed): runs with many duplicate keys, empty
 (all-SENTINEL) runs, full runs and partly filled runs.  Only kept slots
@@ -163,25 +165,26 @@ def test_sort_reduce_rows_wide_matches(C, kind, mon, tok, want):
 
 
 def _numpy_sort_reduce(keys, vals, C, ufunc, toks=None, want=True):
-    """Per run: the sorted unique keys that are kept and their totals
-    (fp32 plus summed in fp64)."""
-    out = []
-    for r in range(keys.size // C):
-        k, v = keys[r * C:(r + 1) * C], vals[r * C:(r + 1) * C]
-        u, inv = np.unique(k, return_inverse=True)
-        acc = np.full(u.size, np.nan)
-        for g in range(u.size):           # few groups: hi = 40
-            acc[g] = ufunc.reduce(v[inv == g].astype(np.float64))
-        keep = u != SENT
-        if toks is not None:
-            t = toks[r * C:(r + 1) * C]
-            has_tok = np.array([(t[inv == g] == 1).any()
-                                for g in range(u.size)])
-            has_prod = np.array([(t[inv == g] == 2).any()
-                                 for g in range(u.size)])
-            keep &= has_prod & (has_tok == want)
-        out.append((u[keep], acc[keep]))
-    return out
+    """Per run: the kept unique keys in ascending order and their totals
+    (``ufunc.reduceat`` over the stably sorted values, fp32 plus summed
+    in fp64), vectorised for runs of many groups."""
+    R = keys.size // C
+    order = np.argsort(keys.reshape(R, C), axis=1, kind="stable")
+    order = (order + np.arange(R)[:, None] * C).reshape(-1)
+    sk = keys[order].astype(np.int64)
+    start = np.ones(sk.size, bool)
+    start[1:] = sk[1:] != sk[:-1]
+    start[::C] = True
+    idx = np.flatnonzero(start)
+    u = sk[idx]
+    acc = ufunc.reduceat(vals[order].astype(np.float64), idx)
+    keep = u != SENT
+    if toks is not None:
+        tor = np.bitwise_or.reduceat(toks[order], idx)
+        keep &= ((tor & 2) != 0) & (((tor & 1) != 0) == want)
+    run = idx // C
+    return [(u[keep & (run == r)], acc[keep & (run == r)])
+            for r in range(R)]
 
 
 @pytest.mark.parametrize("kind,mon,tok", [("f32", "PLUS", False),
@@ -220,6 +223,65 @@ def test_sort_reduce_plain_at_32768(kind, mon, tok):
             np.testing.assert_array_equal(got, tot.astype(got.dtype))
     if not tok:                                     # one key, one group
         assert (ok[2 * C:3 * C] != SENT).sum() == 1
+
+
+@pytest.mark.parametrize("kind,mon,tok,want", [
+    ("f32", "PLUS", False, True), ("i32", "PLUS", True, True),
+    ("f32", "MIN", True, False), ("bool", "LOR", True, True),
+    ("i32", "MAX", False, True)])
+def test_sort_reduce_plain_on_edge_runs(kind, mon, tok, want):
+    """K5 / K6 plain versions at C = 32768 on the cluster kernel's edge
+    runs (``testing.sr_edge_runs``: group boundaries at multiples of 8,
+    256 and 8192, a group over three blocks, all-distinct keys, a
+    descending run, keys 2^31 - 2 beside SENTINEL pads, a run whose only
+    real slot is its last) against a vectorised numpy sort-and-reduceat."""
+    from graphblas_tpu_torch import testing as GT
+    C = 32768
+    rng = np.random.default_rng(len(kind) + len(mon) + 5 * tok)
+    keys = GT.sr_edge_runs(rng, C)
+    vals = GT.sr_values(rng, keys.size, kind)
+    toks = GT.sr_tokens(rng, keys, C) if tok else None
+    logical = kind == "bool"
+    args = (torch.from_numpy(keys), torch.from_numpy(vals))
+    if tok:
+        ok, ov = SRD.sort_reduce_rows_tok(*args, torch.from_numpy(toks), C,
+                                          getattr(TM, mon), want_token=want,
+                                          logical=logical)
+    else:
+        ok, ov = SRD.sort_reduce_rows(*args, C, getattr(TM, mon),
+                                      logical=logical)
+    ufunc = {"PLUS": np.add, "MIN": np.minimum, "MAX": np.maximum,
+             "LOR": np.logical_or}[mon]
+    expect = _numpy_sort_reduce(keys, vals, C, ufunc, toks, want)
+    ok, ov = ok.numpy(), ov.numpy()
+    for r, (u, tot) in enumerate(expect):
+        k = ok[r * C:(r + 1) * C]
+        kept = k != SENT
+        np.testing.assert_array_equal(k[kept], u)
+        got = ov[r * C:(r + 1) * C][kept].astype(np.float64)
+        if kind == "f32" and mon == "PLUS":
+            assert np.abs(got - tot).max(initial=0) <= \
+                FP32_TOL * np.abs(tot).max(initial=0)
+        else:
+            np.testing.assert_array_equal(got, tot.astype(got.dtype))
+    assert sum(u.size for u, _ in expect) > 1000  # many groups are kept
+    if not tok:                # the last run keeps its one real slot
+        assert (ok[5 * C:] != SENT).sum() == 1
+
+
+def test_probe_switches_match_the_kernel_source():
+    """tools/probe_sortreduce.py switches groups of the C = 32768 kernel's
+    stages off by guarding their calls in csrc/sortreduce.cu: every call
+    it guards is still there, and its 16-slot variant changes kP."""
+    from graphblas_tpu_torch.kernels import _cuda
+    from graphblas_tpu_torch.tools import probe_sortreduce as PR
+    src = _cuda.SOURCES["sortreduce"].read_text()
+    for name, off in PR.VARIANTS.items():
+        out = PR.variant_source(src, off)
+        for g in "ABTPX":
+            assert f"#define NO_{g} {int(g in off)}" in out
+            assert f"if (!NO_{g}" in out, (name, g)
+    assert "constexpr int kP = 16;" in PR.variant_source(src, "", p=16)
 
 
 def test_wrappers_refuse_bad_capacity():
