@@ -7,22 +7,23 @@ Phases, each printing one line (more for the per-graph phases):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile graphblas_tpu_torch/csrc/{spmv,sortreduce,permute}.cu,
      one nvcc each, started together; ptxas's registers, spills and shared
-     memory of the C = 32768 sort-reduce kernel;
+     memory of the sort-reduce kernels (one block at C <= 8192, a cluster
+     at C = 32768);
   3. kernels: every kernel against its plain torch version on the card —
      the SpMV kernels K1-K4 at small random sizes with empty rows and one
      row of 10^5 nonzeros (exact for min/max, 1e-5*max|y| for fp32 plus,
      1e-12*max|y| for fp64), K2 and K1 also with the indices and values
      one element past a 16-byte boundary (together, and the indices
-     alone), the sort-reduce kernels K5-K8 on runs of
-     2048 and 8192 slots and K5/K6 on runs of 32768 (the cluster kernel)
-     with many duplicate keys, empty, all-SENTINEL, full runs and one key
-     repeated over a whole run, and on the cluster kernel's edge runs
-     (testing.sr_edge_runs) with the planes aligned and one element past a
+     alone), the sort-reduce kernels K5-K8 at every C (128, 512, 2048,
+     8192, 32768) on random runs with many duplicate keys, empty,
+     all-SENTINEL, full runs and one key repeated over a whole run, and on
+     the layouts' edge runs (testing.sr_edge_runs, sr_wide_edge_keys,
+     sr_pair1_edge_runs) with the planes aligned and one element past a
      16-byte boundary (keys exact; values exact for int32, bool, min/max
-     and K7, 1e-5*max|v| for fp32 plus), K5/K6 at 32768 twice bitwise
-     equal (fp32 plus), K9 on a random
-     permutation of 2^24 + 777 fp32 elements (exact), and two K2, two K1
-     and two K3 min-plus calls at graph (b) bitwise equal;
+     and K7, 1e-5*max|v| for fp32 plus), every call twice bitwise equal
+     (K7 and K8 at 32768 launch here only: no path runs them), K9 on a
+     random permutation of 2^24 + 777 fp32 elements (exact), and two K2,
+     two K1 and two K3 min-plus calls at graph (b) bitwise equal;
   4. SpMV main path at real size through the public API on two graphs —
      (a) bench.py's uniform graph (n = 2^20, degree 16, seed 0) and
      (b) RMAT scale 20, edge factor 16, seed 7 (bench_real.py's graph,
@@ -40,23 +41,23 @@ Phases, each printing one line (more for the per-graph phases):
      L1: what the x gather costs);
   7. SpGEMM main path (the SELL tier) through gt.mxm, gt.select and
      triangle_count, with the sort-reduce launch counts set to 0 before
-     and read after: (a) C = A*A on graph (a) (K5; nnz 268,406,919, 4096
-     sampled rows exact against scipy, fp64 checksum (S'1).(S1)),
-     triangle_count = 647 (K7; also scipy's sum((L L').*L)), the
-     materialised masked count mxm(L, L', PLUS_PAIR, mask=L) (K6) and a
-     complemented-mask product (sampled rows exact); (b)
-     triangle_count(RMAT-18) = 19,595,360; (c) C = A*A and C<A> = A*A
+     and read after (in total and by C): (a) C = A*A on graph (a) (K5;
+     nnz 268,406,919, 4096 sampled rows exact against scipy, fp64
+     checksum (S'1).(S1)), triangle_count = 647 (K7; also scipy's
+     sum((L L').*L)), the materialised masked count mxm(L, L', PLUS_PAIR,
+     mask=L) (K6) and a complemented-mask product (sampled rows exact);
+     (b) triangle_count(RMAT-18) = 19,595,360; (c) C = A*A and C<A> = A*A
      with n = 2^23 columns, degree 2 (the wide keys, K8; sampled rows
      exact); every sort-reduce kernel launched, and the native layout
      sweep ran (never the Python one);
   8. sort-reduce times: each of K5-K8 and its plain version on the
      inputs the main path gave it (its first launch), beside the bound of
-     its bytes;
+     its bytes and one torch.sort of the same runs' keys (a sort alone);
   9. wall times of (a) A*A, (a) and (b) triangle_count, cold and warm;
  10. where the SpGEMM time goes: one warm A*A (a) and one warm
      triangle_count (b), with the SELL phases timed on the host, then
      under torch.profiler (device busy share, device time by operator
-     and by kernel, and each sort-reduce kernel's);
+     and by kernel, and the sort-reduce kernels' by C);
  11. the fast SpGEMM tier at full size, which takes the products SELL
      declines (RMAT-18's A*A, 2.9e9 products: a slot domain beyond
      int32), the launch counts set to 0 before and read after: RMAT-18
@@ -66,17 +67,18 @@ Phases, each printing one line (more for the per-graph phases):
      K5 launched at every C in (128 ... 32768) and K6 at 32768; wall
      times cold and warm; one warm RMAT-18 A*A traced as in phase 10;
  12. K5 and K6 at C = 32768 and their plain versions on the fast tier's
-     first inputs at that C, beside the bound of their bytes; the kernel's
-     most co-resident clusters, registers, spills and shared memory on
-     this card, and one torch.sort of the same runs (a yardstick: a sort
-     alone, not the function);
+     first inputs at that C, K7 and K8 at 32768 on inputs of that size,
+     beside the bound of their bytes and a torch.sort; each sort-reduce
+     kernel's blocks or clusters resident at once, registers, spills and
+     shared memory on this card;
  13. K9: global_permute of graph (a)'s CSR -> CSC value permutation
      (launches counted), exact against the plain version and scipy's CSC
      values, timed beside its bound and one torch.take.
 The two lines before the last are the card (nvidia-smi) and one JSON
 object describing the kernels; the last line is the result JSON.  Any
-failure raises and exits non-zero.  Needs one CUDA card; exits non-zero
-without one.
+failure raises and exits non-zero.  Needs one CUDA card and the
+graphblas_tpu_torch package beside this script; exits non-zero, with no
+result, without either.
 """
 
 import json
@@ -107,25 +109,33 @@ KERNELS = {   # key: (name, source, TPU kernel replaced)
            "graphblas_tpu/kernels/spmv_route.py:1767"),
     "K4": ("spmv_merge_planned<double,plus,times>", SPMV_SRC,
            "graphblas_tpu/kernels/spmv_route.py:1581"),
-    "K5": ("sort_reduce_kernel (sort_reduce_rows)", SR_SRC,
+    "K5": ("sort_reduce_block_regs_kernel (sort_reduce_rows)", SR_SRC,
            "graphblas_tpu/kernels/sortreduce.py:252"),
-    "K6": ("sort_reduce_kernel + tokens (sort_reduce_rows_tok)", SR_SRC,
-           "graphblas_tpu/kernels/sortreduce.py:465"),
-    "K7": ("sort_pair1_kernel (sort_reduce_pair1)", SR_SRC,
-           "graphblas_tpu/kernels/sortreduce.py:360"),
-    "K8": ("sort_reduce_kernel + key2 (sort_reduce_rows_wide)", SR_SRC,
-           "graphblas_tpu/kernels/sortreduce.py:435"),
+    "K6": ("sort_reduce_block_regs_kernel + tokens (sort_reduce_rows_tok)",
+           SR_SRC, "graphblas_tpu/kernels/sortreduce.py:465"),
+    "K7": ("sort_reduce_block_regs_kernel, pair counts (sort_reduce_pair1)",
+           SR_SRC, "graphblas_tpu/kernels/sortreduce.py:360"),
+    "K8": ("sort_reduce_block_regs_kernel + key2 (sort_reduce_rows_wide)",
+           SR_SRC, "graphblas_tpu/kernels/sortreduce.py:435"),
     "K5@32768": ("sort_reduce_cluster_regs_kernel (sort_reduce_rows, "
                  "C=32768)", SR_SRC,
                  "graphblas_tpu/kernels/sortreduce.py:252"),
     "K6@32768": ("sort_reduce_cluster_regs_kernel + tokens "
                  "(sort_reduce_rows_tok, C=32768)", SR_SRC,
                  "graphblas_tpu/kernels/sortreduce.py:465"),
+    "K7@32768": ("sort_reduce_cluster_regs_kernel, pair counts "
+                 "(sort_reduce_pair1, C=32768)", SR_SRC,
+                 "graphblas_tpu/kernels/sortreduce.py:360"),
+    "K8@32768": ("sort_reduce_cluster_regs_kernel + key2 "
+                 "(sort_reduce_rows_wide, C=32768)", SR_SRC,
+                 "graphblas_tpu/kernels/sortreduce.py:435"),
     "K9": ("permute_gather_32 (global_permute, tile_permute, "
            "sublane_permute)", PERMUTE_SRC,
            "graphblas_tpu/kernels/static_route.py:580"),
 }
 BIG_C = 32768
+SMALL_CAPS = (128, 512, 2048, 8192)
+BLOCK_KERNEL = "sort_reduce_block_regs_kernel"
 CLUSTER_KERNEL = "sort_reduce_cluster_regs_kernel"
 SR_WRAPPERS = {"K5": "sort_reduce_rows", "K6": "sort_reduce_rows_tok",
                "K7": "sort_reduce_pair1", "K8": "sort_reduce_rows_wide"}
@@ -142,14 +152,14 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cluster_ptxas(log):
-    """ptxas's report (-Xptxas -v) of every instance of the C = 32768
-    kernel: a list of (registers, spill store bytes, spill load bytes,
+def kernel_ptxas(log, name):
+    """ptxas's report (-Xptxas -v) of every instance of the kernel
+    ``name``: a list of (registers, spill store bytes, spill load bytes,
     static shared-memory bytes)."""
     out, cur, spill = [], False, (0, 0)
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            cur = CLUSTER_KERNEL in ln
+            cur = name in ln
         elif cur and "spill stores" in ln:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           ln)
@@ -540,10 +550,13 @@ def two_passes(fn, calls=20):
 # ---------------------------------------------------------------------------
 
 def phase_sr_kernels(errs):
-    """Phase 3b: K5-K8 against their plain versions on the card."""
+    """Phase 3b: K5-K8 against their plain versions on the card at every
+    C, on random runs and on the layouts' edge runs (aligned and one
+    element past a 16-byte boundary), each call twice and bitwise equal.
+    The launch counts are set to 0 before; returns (comparisons, launches
+    by (wrapper, C))."""
     import torch
     from graphblas_tpu_torch import testing as GT
-    from graphblas_tpu_torch.core import monoid as TM
     from graphblas_tpu_torch.kernels import sortreduce as SRD
     rng = np.random.default_rng(12)
     cu = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
@@ -551,66 +564,24 @@ def phase_sr_kernels(errs):
 
     def check(key, fn, plain, args, kw, exact):
         nonlocal n_cmp
-        got = fn(*args, **kw)
+        got, again = fn(*args, **kw), fn(*args, **kw)
         torch.cuda.synchronize()
         errs[key] = max(errs[key], GT.sr_err(got, plain(*args, **kw),
                                              exact))
+        same = all(torch.equal(a, b) for a, b in zip(got, again)) \
+            if isinstance(got, tuple) else torch.equal(got, again)
+        assert same, f"{key} not bitwise repeatable"
         n_cmp += 1
 
-    for C in (2048, 8192, BIG_C):
-        # (keys, shift): at 32768 also the cluster kernel's edge runs, with
-        # the planes aligned and one element past a 16-byte boundary
-        sets = [(GT.sr_runs(rng, C), 0)]
-        if C == BIG_C:
-            sets += [(GT.sr_edge_runs(rng, C), by) for by in (0, 1)]
-        for keys, by in sets:
+    SRD.reset_launches()
+    for C in SMALL_CAPS + (BIG_C,):
+        big = "@32768" if C == BIG_C else ""
+        for edge, by in ((False, 0), (True, 0), (True, 1)):
             on = lambda a: GT.shifted(cu(a), by)  # noqa: E731
-            vals = {k: on(GT.sr_values(rng, keys.size, k))
-                    for k in ("f32", "i32", "bool")}
-            toks = on(GT.sr_tokens(rng, keys, C))
-            for kind, mon in (("i32", "PLUS"), ("f32", "PLUS"),
-                              ("f32", "MIN"), ("f32", "MAX"),
-                              ("bool", "LOR")):
-                args = (on(keys), vals[kind], C, getattr(TM, mon))
-                exact = not (kind == "f32" and mon == "PLUS")
-                kw = {"logical": kind == "bool"}
-                big = "@32768" if C == BIG_C else ""
-                check("K5" + big, SRD.sort_reduce_rows,
-                      SRD.sort_reduce_rows_plain, args, kw, exact)
-                for want in (True, False):
-                    check("K6" + big, SRD.sort_reduce_rows_tok,
-                          SRD.sort_reduce_rows_tok_plain,
-                          args[:2] + (toks,) + args[2:],
-                          dict(kw, want_token=want), exact)
-        if C == BIG_C:          # K7 and K8 take C <= 8192
-            continue
-        kh, kl, tw = GT.sr_wide_keys(rng, C)
-        tw = cu(tw)
-        for mon, kind in (("PLUS", "f32"), ("MIN", "f32"), ("PLUS", "i32")):
-            for tk, want in ((None, True), (tw, True), (tw, False)):
-                check("K8", SRD.sort_reduce_rows_wide,
-                      SRD.sort_reduce_rows_wide_plain,
-                      (cu(kh), cu(kl), vals[kind], C, getattr(TM, mon)),
-                      dict(toks=tk, want_token=want),
-                      not (kind == "f32" and mon == "PLUS"))
-        pk = cu(GT.sr_pair1_keys(rng, C))
-        for want in (True, False):
-            check("K7", SRD.sort_reduce_pair1, SRD.sort_reduce_pair1_plain,
-                  (pk, C),
-                  dict(want_token=want), True)
-    # K5 and K6 at 32768 (fp32 plus) twice on the same edge runs: the same
-    # bits (a fixed reduction tree, no atomics)
-    keys = GT.sr_edge_runs(rng, BIG_C)
-    kt, vt = cu(keys), cu(GT.sr_values(rng, keys.size, "f32"))
-    tt = cu(GT.sr_tokens(rng, keys, BIG_C))
-    for key, fn, args in (
-            ("K5", SRD.sort_reduce_rows, (kt, vt, BIG_C, TM.PLUS)),
-            ("K6", SRD.sort_reduce_rows_tok, (kt, vt, tt, BIG_C, TM.PLUS))):
-        a, b = fn(*args), fn(*args)
-        torch.cuda.synchronize()
-        assert all(torch.equal(x, y) for x, y in zip(a, b)), \
-            f"{key}@{BIG_C} not bitwise repeatable"
-    return n_cmp
+            for key, fn, plain, args, kw, exact in GT.sr_cases(rng, C, edge,
+                                                               on):
+                check(key + big, fn, plain, args, kw, exact)
+    return n_cmp, dict(SRD.launches_by_cap)
 
 
 def phase_permute_kernel(errs):
@@ -659,9 +630,10 @@ def phase_repeat(S):
 
 class Recorder:
     """Records the first call of each sort-reduce wrapper during a path
-    (``first``; its inputs are the shapes phase 8 times) and, for C in
-    ``caps``, its first call at that C (``by_cap[(key, C)]``); the call
-    itself goes to the wrapper, which counts its own launches."""
+    (``first``; its inputs are the shapes phase 8 times), for C in
+    ``caps`` its first call at that C (``by_cap[(key, C)]``), and the C of
+    every call in order (``seq``); the call itself goes to the wrapper,
+    which counts its own launches."""
 
     def __init__(self, caps=()):
         from graphblas_tpu_torch.kernels import sortreduce as SRD
@@ -669,6 +641,7 @@ class Recorder:
         self.caps = caps
         self.first = {}
         self.by_cap = {}
+        self.seq = []
         self.orig = {}
 
     def __enter__(self):
@@ -682,6 +655,7 @@ class Recorder:
         def call(*args, **kw):
             C = next(a for a in args if isinstance(a, int))
             self.first.setdefault(key, (args, kw))
+            self.seq.append(C)
             if C in self.caps:
                 self.by_cap.setdefault((key, C), (args, kw))
             return fn(*args, **kw)
@@ -967,8 +941,9 @@ SR_BYTES = {"K5": 16, "K6": 20, "K7": 8}   # per slot; K8 below
 
 def phase_sr_times(calls, card, errs, tag="8 sort-reduce times"):
     """Phase 8 (and 12): sort-reduce kernels and their plain versions on
-    the main-path inputs ``calls`` ({key: (args, kw)}; key K5..K8, or
-    K5@32768 / K6@32768)."""
+    the inputs ``calls`` ({key: (args, kw)}; key K5..K8, or K5@32768 ...
+    K8@32768), beside the bound of their bytes and one torch.sort of the
+    same runs' keys (a yardstick: a sort alone, not the function)."""
     import torch
     from graphblas_tpu_torch import testing as GT
     from graphblas_tpu_torch.kernels import sortreduce as SRD
@@ -994,6 +969,7 @@ def phase_sr_times(calls, card, errs, tag="8 sort-reduce times"):
         tk1 = time_ms(kern)
         tk2 = time_ms(kern)
         tp2 = time_ms(ref, reps=5)
+        ts = time_ms(lambda: torch.sort(args[0].view(-1, C), dim=1))
         # operations: a comparison sort needs log2(C) per slot, the
         # reduce one more
         # (ms, plain ms, library ms: no single torch call, bound, by)
@@ -1003,28 +979,47 @@ def phase_sr_times(calls, card, errs, tag="8 sort-reduce times"):
               f"{out[key][0]:.3f} ms on {slots} slots (C={C}, "
               f"{slots / out[key][0] / 1e6:.2f} Gslot/s), plain "
               f"{out[key][1]:.3f} ms, bound {out[key][3]:.4f} ms "
-              f"({out[key][4]})", flush=True)
+              f"({out[key][4]}); torch.sort of the keys' runs {ts:.3f} ms",
+              flush=True)
     return out
 
 
-def phase_cluster(calls, card):
-    """Phase 12: the C = 32768 kernel's resources on this card (most
-    clusters resident at once, registers, spills, shared memory) and one
-    torch.sort of the K5 inputs' runs, a yardstick printed only: a sort
-    alone, not the segmented sort-reduce."""
+def big_k7_k8_calls(rng):
+    """K7 and K8 at C = 32768 (no main path runs them) on 140 runs, the
+    size of the fast tier's first block at that C: {key: (args, kw)}."""
+    import torch
+    from graphblas_tpu_torch import testing as GT
+    from graphblas_tpu_torch.core import monoid as TM
+    cu = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    kh, kl, tw = GT.sr_wide_keys(rng, BIG_C, runs=140)
+    vals = cu(GT.sr_values(rng, kh.size, "f32"))
+    return {f"K7@{BIG_C}": ((cu(GT.sr_pair1_keys(rng, BIG_C, runs=140)),
+                             BIG_C), {}),
+            f"K8@{BIG_C}": ((cu(kh), cu(kl), vals, BIG_C, TM.PLUS),
+                            {"toks": cu(tw)})}
+
+
+def phase_resources(calls, card):
+    """Phase 12: each sort-reduce kernel's resources on this card (blocks
+    an SM holds at once, or clusters the card holds, registers, spills,
+    shared memory) by what rides the sort and C, and one torch.sort of
+    the K5 inputs' runs at 32768."""
     import torch
     from graphblas_tpu_torch.kernels import _cuda
     keys = calls[f"K5@{BIG_C}"][0][0]
     ts = time_ms(lambda: torch.sort(keys.view(-1, BIG_C), dim=1))
-    print(f"[12 cluster kernel] {card} | " + " | ".join(
-        f"{k}@{BIG_C}: {v['max_active_clusters']} clusters resident at "
-        f"most, {v['registers']} registers, {v['local_bytes']} B local "
-        f"(spills), shared {v['static_smem']} B static + "
-        f"{v['dynamic_smem']} B dynamic"
-        for k, v in (("K5", _cuda.sort_reduce_cluster_info(False)),
-                     ("K6", _cuda.sort_reduce_cluster_info(True))))
-        + f" | torch.sort(keys.view(-1, {BIG_C}), dim=1) {ts:.3f} ms on "
-        f"the K5 inputs (sort only, not the function)", flush=True)
+    parts = []
+    for mode in _cuda.SR_MODES:
+        for C in (2048, 8192, BIG_C):
+            v = _cuda.sort_reduce_info(mode, C)
+            unit = "blocks/SM" if C < BIG_C else "clusters"
+            parts.append(
+                f"{mode}@{C}: {v['resident']} {unit}, {v['registers']} "
+                f"regs, {v['local_bytes']} B local, smem "
+                f"{v['static_smem']} + {v['dynamic_smem']} B")
+    print(f"[12 resources] {card} | " + " | ".join(parts)
+          + f" | torch.sort(keys.view(-1, {BIG_C}), dim=1) {ts:.3f} ms on "
+          f"the K5@{BIG_C} inputs (sort only, not the function)", flush=True)
 
 
 SPGEMM_PHASES = {"spgemm_sell": ("_prep", "_pass1", "_counts", "_pass2"),
@@ -1066,9 +1061,10 @@ def _busy_s(events):
 def traced(label, fn, card, phases=SPGEMM_PHASES, tag="10 trace"):
     """One warm call of ``fn`` with its SpGEMM phases (``phases``) timed
     on the host (each wrapped in synchronize), then one under
-    torch.profiler: device busy time against wall time, and where the
-    device time goes (by operator and by kernel, each its own time).
-    Returns the idle share."""
+    torch.profiler: device busy time against wall time, where the device
+    time goes (by operator and by kernel, each its own time), and the
+    sort-reduce kernels' device time by C (each launch matched to the C
+    of its wrapper call, in launch order).  Returns the idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1096,10 +1092,20 @@ def traced(label, fn, card, phases=SPGEMM_PHASES, tag="10 trace"):
     _, wall = timed(fn)
     for (mod, name), f in orig.items():
         setattr(mods[mod], name, f)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with Recorder() as rec, profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) \
+            as prof:
         _, wall_p = timed(fn)
     ev = prof.key_averages()
+    launched = sorted((e for e in prof.events() if _on_device(e)
+                       and "_regs_kernel" in e.name),
+                      key=lambda e: e.time_range.start)
+    assert len(launched) == len(rec.seq), (len(launched), len(rec.seq))
+    by_c = {}
+    for e, C in zip(launched, rec.seq):
+        ms, n = by_c.get(C, (0.0, 0))
+        by_c[C] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                   n + 1)
     kern = sorted((e for e in ev if _on_device(e) and _dev_us(e) > 0),
                   key=lambda e: -_dev_us(e))
     busy = _busy_s([e for e in prof.events() if _on_device(e)])
@@ -1110,11 +1116,16 @@ def traced(label, fn, card, phases=SPGEMM_PHASES, tag="10 trace"):
                         for e in ops[:6])
     top_k = ", ".join(f"{e.key[:48]} {_dev_us(e) / 1e3:.1f} ms x{e.count}"
                       for e in kern[:6])
-    # the sort-reduce kernels (K5-K8), wherever they rank
+    # the sort-reduce kernels (K5-K8), wherever they rank, and by C
     srk = ", ".join(
         f"{e.key.replace('(anonymous namespace)::', '').split('(')[0]} "
         f"{_dev_us(e) / 1e3:.1f} ms x{e.count}" for e in kern
-        if "sort_reduce" in e.key or "sort_pair1" in e.key)
+        if "_regs_kernel" in e.key)
+    srk += "; by C: " + ", ".join(
+        f"C={C} {ms:.1f} ms x{n}" for C, (ms, n) in sorted(by_c.items()))
+    small = [v for C, v in by_c.items() if C < BIG_C]
+    srk += (f"; C <= 8192 together {sum(m for m, _ in small):.1f} ms "
+            f"x{sum(n for _, n in small)}")
     print(f"[{tag} {label}] {card} | wall {wall:.3f} s; host-timed "
           f"phases " + " ".join(f"{k}={v:.3f}s" for k, v in spent.items())
           + f" | profiled wall {wall_p:.3f} s, device busy {busy:.3f} s "
@@ -1142,6 +1153,12 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    try:
+        import graphblas_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the graphblas_tpu_torch package is not beside "
+              f"this script ({e})", file=sys.stderr)
+        return 2
     # 1. device
     card = card_line()
     print(f"[1 device] {card} | {torch.cuda.get_device_name(0)} | "
@@ -1159,30 +1176,34 @@ def main():
           f"{', '.join(p.name for p in libs.values())}; "
           f"ptxas: {len(regs)} kernels, "
           f"{max((ln for ln in regs), key=len, default='')}", flush=True)
-    cp = cluster_ptxas(_cuda.build_log("sortreduce"))
-    assert cp, "no ptxas report of the C = 32768 kernel"
-    print(f"[2 build] ptxas {CLUSTER_KERNEL}: {len(cp)} instances, "
-          f"registers {min(c[0] for c in cp)}-{max(c[0] for c in cp)}, "
-          f"spill stores <= {max(c[1] for c in cp)} B, spill loads <= "
-          f"{max(c[2] for c in cp)} B, static shared memory "
-          f"{max(c[3] for c in cp)} B", flush=True)
+    for kname in (BLOCK_KERNEL, CLUSTER_KERNEL):
+        cp = kernel_ptxas(_cuda.build_log("sortreduce"), kname)
+        assert cp, f"no ptxas report of {kname}"
+        print(f"[2 build] ptxas {kname}: {len(cp)} instances, "
+              f"registers {min(c[0] for c in cp)}-{max(c[0] for c in cp)}, "
+              f"spill stores <= {max(c[1] for c in cp)} B, spill loads <= "
+              f"{max(c[2] for c in cp)} B, static shared memory "
+              f"{max(c[3] for c in cp)} B", flush=True)
     # 3. kernels vs plain versions
     graphs = {"a (bench.py uniform 2^20 x16)": bench_graph(),
               "b (RMAT-20 x16)": rmat_graph()}
     errs = {k: 0.0 for k in KERNELS}
     t0 = time.perf_counter()
     n_cmp, shape, max_row = phase_kernels(errs)
-    n_sr = phase_sr_kernels(errs)
+    n_sr, sr_launches = phase_sr_kernels(errs)
     n_perm = phase_permute_kernel(errs)
     n_tiles, n_cuts = phase_repeat(graphs["b (RMAT-20 x16)"])
     print(f"[3 kernels] {n_cmp} SpMV instantiations match their plain "
           f"versions (min/max exact, fp32 plus <= {FP32_TOL}*max|y|, fp64 "
           f"<= {FP64_TOL}*max|y|) at {shape[0]}x{shape[1]}, max row "
-          f"{max_row}; {n_sr} sort-reduce comparisons at C = 2048, 8192, "
-          f"32768 (K5/K6 only, also on edge runs aligned and one element "
-          f"past a 16-byte boundary, and twice bitwise equal; keys, ints, "
-          f"bool, min/max and K7 exact, "
-          f"fp32 plus <= {FP32_TOL}*max|v|); K9 exact on {n_perm} "
+          f"{max_row}; {n_sr} sort-reduce comparisons of K5-K8 at C = "
+          f"{', '.join(map(str, SMALL_CAPS + (BIG_C,)))} (random runs and "
+          f"edge runs aligned and one element past a 16-byte boundary, "
+          f"each call twice bitwise equal; keys, ints, bool, min/max and "
+          f"K7 exact, fp32 plus <= {FP32_TOL}*max|v|; launches "
+          + ", ".join(f"{n}@{c}={v}" for (n, c), v in
+                      sorted(sr_launches.items()))
+          + f"); K9 exact on {n_perm} "
           f"elements; K2, K1 and K3 min-plus bitwise repeatable at graph "
           f"(b) ({n_tiles} tiles, {n_cuts} of them start inside a row); "
           f"max|err| " + ", ".join(
@@ -1220,6 +1241,9 @@ def main():
         counts[key] = SRD.launches[name]
     print("[7 launches] " + ", ".join(
         f"{KERNELS[k][0]}={counts[k]}" for k in SR_WRAPPERS)
+        + " | by C: " + ", ".join(
+            f"{n}@{c}={v}" for (n, c), v in
+            sorted(SRD.launches_by_cap.items()))
         + f"; layout sweeps {NAT.sweeps}", flush=True)
     assert all(counts[k] > 0 for k in SR_WRAPPERS), counts
     assert NAT.sweeps["python"] == 0, NAT.sweeps
@@ -1230,14 +1254,17 @@ def main():
     print(f"[9 wall] {card} | " + " ".join(
         f"{k}_s={v:.3f}" for k, v in wall.items()), flush=True)
     phase_trace(card)
-    # 11. the fast tier at full size; 12. its C = 32768 kernels' times
+    # 11. the fast tier at full size; 12. the C = 32768 kernels' times
+    # (K5/K6 on the fast tier's first inputs at that C, K7/K8 on inputs of
+    # that size: no path runs them at 32768, their launches are phase 3's)
     _, rec, by_cap = fast_tier_path(rng, card)
-    for key, name in (("K5", "sort_reduce_rows"),
-                      ("K6", "sort_reduce_rows_tok")):
-        counts[f"{key}@{BIG_C}"] = by_cap[(name, BIG_C)]
+    for key, name in SR_WRAPPERS.items():
+        counts[f"{key}@{BIG_C}"] = (sr_launches if key in ("K7", "K8")
+                                    else by_cap)[(name, BIG_C)]
     big = {f"{k}@{BIG_C}": rec.by_cap[(k, BIG_C)] for k in ("K5", "K6")}
+    big.update(big_k7_k8_calls(rng))
     ta.update(phase_sr_times(big, card, errs, "12 sort-reduce times C=32768"))
-    phase_cluster(big, card)
+    phase_resources(big, card)
     del rec, big
     # 13. K9
     counts["K9"], ta["K9"] = phase_permute(card, errs)

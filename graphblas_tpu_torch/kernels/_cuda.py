@@ -107,8 +107,8 @@ def _bind_sortreduce(so) -> None:
     so.gb_sort_reduce.restype = ctypes.c_int
     so.gb_sort_pair1.argtypes = [P, P, I, I, I, P]
     so.gb_sort_pair1.restype = ctypes.c_int
-    so.gb_sort_reduce_cluster_info.argtypes = [I, P]
-    so.gb_sort_reduce_cluster_info.restype = ctypes.c_int
+    so.gb_sort_reduce_info.argtypes = [I, I, P]
+    so.gb_sort_reduce_info.restype = ctypes.c_int
 
 
 def _bind_permute(so) -> None:
@@ -229,7 +229,8 @@ def sort_reduce(keys, keys2, vals, toks, okeys, okeys2, ovals, C: int,
 
 
 def sort_pair1(keys, out, C: int, want_token: bool) -> None:
-    """K7 over ``keys.numel() // C`` runs of C slots, on one card."""
+    """K7 over ``keys.numel() // C`` runs of C slots, on one card (``out``
+    16-byte aligned)."""
     dev = keys.device
     with torch.cuda.device(dev):
         err = lib("sortreduce").gb_sort_pair1(
@@ -238,16 +239,22 @@ def sort_pair1(keys, out, C: int, want_token: bool) -> None:
     _check(err, f"sort_pair1<C={C}>", "sortreduce")
 
 
-def sort_reduce_cluster_info(tok: bool) -> dict:
-    """The C = 32768 kernel (fp32 PLUS, with or without tokens) on the
-    current card: the most clusters resident at once, registers and local
-    memory (spills) a thread, static and dynamic shared memory a block."""
+# sortreduce.cu: what rides the sort (the Mode enum)
+SR_MODES = {"K5": 0, "K6": 1, "K7": 2, "K8": 3, "K8T": 4}
+
+
+def sort_reduce_info(mode: str, C: int) -> dict:
+    """The sort-reduce kernel that runs ``mode`` (a key of ``SR_MODES``;
+    fp32 PLUS, K7's int32 counts) at class C on the current card:
+    ``resident`` the most blocks an SM holds at once (C <= 8192) or
+    clusters the card holds (C = 32768), registers and local memory
+    (spills) a thread, static and dynamic shared memory a block."""
     out = (ctypes.c_int32 * 5)()
-    err = lib("sortreduce").gb_sort_reduce_cluster_info(
-        int(bool(tok)), ctypes.cast(out, ctypes.c_void_p))
-    _check(err, "sort_reduce_cluster_info", "sortreduce")
-    return dict(zip(("max_active_clusters", "registers", "local_bytes",
-                     "static_smem", "dynamic_smem"), out))
+    err = lib("sortreduce").gb_sort_reduce_info(
+        SR_MODES[mode], int(C), ctypes.cast(out, ctypes.c_void_p))
+    _check(err, "sort_reduce_info", "sortreduce")
+    return dict(zip(("resident", "registers", "local_bytes", "static_smem",
+                     "dynamic_smem"), out))
 
 
 def permute_gather_32(x, perm, out) -> None:

@@ -24,11 +24,11 @@ Each wrapper launches the CUDA kernel of ``csrc/sortreduce.cu`` for CUDA
 tensors (and counts the launch in ``launches`` and, by C, in
 ``launches_by_cap``) and runs its plain torch version (``*_plain``) for
 CPU tensors.  Values are int32 (bool carried as 0/1 with ``logical=True``)
-or float32.  K5 and K6 take every C in ``CAPS``; C = 32768 runs on a
-cluster of four thread blocks that sort and scan in registers (warp
-shuffles; shared memory only to change layouts and to exchange between
-the blocks).  K7 and K8 take C <= 8192 (``CAPS_ONE_BLOCK``): no caller
-uses them at 32768 in either package.
+or float32.  Every wrapper takes every C in ``CAPS``, as the JAX wrappers
+do.  The kernels sort and scan in registers (warp shuffles; shared memory
+only to change layouts): at C <= 8192 a thread block holds one run or
+several side by side, at C = 32768 a run takes a cluster of four blocks
+that exchange through each other's shared memory.
 """
 
 from __future__ import annotations
@@ -39,11 +39,9 @@ from . import _cuda
 from . import segment as K
 
 SENTINEL = 2**31 - 1
-# C the CUDA kernels take: the run classes of the JAX package
+# C the CUDA kernels take: the run classes of the JAX package (all below
+# 2^20, where K7 keeps its twin bit)
 CAPS = (128, 512, 2048, 8192, 32768)
-# C whose run fits one thread block (K7 and K8; all below 2^20, where K7
-# keeps its twin bit)
-CAPS_ONE_BLOCK = (128, 512, 2048, 8192)
 
 # launches of the CUDA kernels (CPU calls run the plain versions,
 # uncounted), in total and by (wrapper name, C)
@@ -188,10 +186,10 @@ def sort_reduce_pair1_plain(keys, C, *, want_token=True):
 # wrappers: CUDA kernel on CUDA tensors, plain version on CPU tensors
 # ---------------------------------------------------------------------------
 
-def _cap(C, caps=CAPS) -> int:
+def _cap(C) -> int:
     C = int(C)
-    if C not in caps:
-        raise ValueError(f"sort-reduce: C={C} not in {caps}")
+    if C not in CAPS:
+        raise ValueError(f"sort-reduce: C={C} not in {CAPS}")
     return C
 
 
@@ -255,8 +253,8 @@ def sort_reduce_rows_tok(keys, vals, toks, C, monoid, *, want_token=True,
 def sort_reduce_rows_wide(keysh, keysl, vals, C, monoid, *, toks=None,
                           want_token=True, logical=False):
     """K8: lexicographic (keysh, keysl) sort-reduce, with or without the
-    token plane; returns (okeysh, okeysl, ovals).  C <= 8192."""
-    C = _cap(C, CAPS_ONE_BLOCK)
+    token plane; returns (okeysh, okeysl, ovals)."""
+    C = _cap(C)
     if not keysh.is_cuda:
         return sort_reduce_rows_wide_plain(keysh, keysl, vals, C, monoid,
                                            toks=toks, want_token=want_token,
@@ -271,9 +269,8 @@ def sort_reduce_rows_wide(keysh, keysl, vals, C, monoid, *, toks=None,
 
 
 def sort_reduce_pair1(keys, C, *, want_token=True):
-    """K7: per-slot product counts of kept groups (0 elsewhere).
-    C <= 8192."""
-    C = _cap(C, CAPS_ONE_BLOCK)
+    """K7: per-slot product counts of kept groups (0 elsewhere)."""
+    C = _cap(C)
     if not keys.is_cuda:
         return sort_reduce_pair1_plain(keys, C, want_token=want_token)
     _check(C, keys, [])

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core import monoid as TM
+from .kernels import sortreduce as SRD
 from .kernels.sortreduce import SENTINEL
 
 FP32_TOL = 1e-5   # fp32 plus totals: the order of the sum differs
@@ -85,31 +87,109 @@ def sr_runs(rng, C, runs=64, hi=40):
 
 
 def sr_edge_runs(rng, C=32768):
-    """int32 keys of C-slot runs (C = 32768 by default, the cluster
-    kernel's; any multiple of 8192 works) at the edges of its layout, each
-    run shuffled unless said otherwise:
+    """int32 keys of C-slot runs (C = 32768 by default; any C in 128 ...
+    32768) at the edges of the kernels' layouts (8 slots a thread, 256 a
+    warp, 8192 a block, C = 32768 on a cluster of 4 blocks), each run
+    shuffled unless said otherwise:
       0. group boundaries exactly at multiples of 8 (a thread's slots),
-         256 (a warp's) and 8192 (a block's) in the sorted run;
-      1. one group over sorted slots [9000, 25000): it spans three of the
-         four blocks;
-      2. all keys distinct: a permutation of [0, C);
-      3. descending keys (groups of 3), not shuffled;
-      4. keys 2^31 - 2 (100 of them) beside SENTINEL pads and large keys;
-      5. SENTINEL everywhere but the last slot (not shuffled)."""
+         256 (a warp's) and C / 4 in the sorted run;
+      1. one group over sorted slots [0.27 C, 0.76 C) (at 32768 it spans
+         three of the four blocks);
+      2. one group over the second half of the sorted run, to its end;
+      3. all keys distinct: a permutation of [9, C + 9), whose smallest
+         key is run 2's last group's (runs are separate even where a
+         block holds both);
+      4. descending keys (groups of 3), not shuffled;
+      5. keys 2^31 - 2 (100 of them, fewer below C = 2048) beside
+         SENTINEL pads and large keys;
+      6. SENTINEL everywhere but the last slot (not shuffled);
+    then, for C < 8192, random partly filled runs up to 8192 / C + 3 runs
+    in all, so the last block of 8192 slots is only partly filled."""
     q = C // 4
     s = np.arange(C, dtype=np.int64)
     bounds = np.where(s < q // 4, s // 8,
                       np.where(s < 2 * q, 4096 + s // 256, 65536 + s // q))
-    span = np.concatenate([rng.integers(0, 9, 9000), np.full(16000, 9),
-                           rng.integers(10, 100, C - 25000)])
+    lo, hi = C * 9000 // 32768, C * 25000 // 32768
+    span = np.concatenate([rng.integers(0, 9, lo), np.full(hi - lo, 9),
+                           rng.integers(10, 100, C - hi)])
+    tail = np.concatenate([rng.integers(0, 9, C // 2), np.full(C // 2, 9)])
     big = np.full(C, SENTINEL, np.int64)
-    big[:100] = SENTINEL - 1
-    big[100:20000] = rng.integers(1 << 30, SENTINEL - 1, 19900)
+    n_top, n_big = min(100, C // 16), C * 20000 // 32768
+    big[:n_top] = SENTINEL - 1
+    big[n_top:n_big] = rng.integers(1 << 30, SENTINEL - 1, n_big - n_top)
     last = np.full(C, SENTINEL, np.int64)
     last[-1] = 12345
-    runs = [bounds, span, rng.permutation(C), (C - 1 - s) // 3, big, last]
-    for r in (0, 1, 4):
+    runs = [bounds, span, tail, rng.permutation(C) + 9, (C - 1 - s) // 3,
+            big, last]
+    for r in (0, 1, 2, 5):
         rng.shuffle(runs[r])
+    keys = np.concatenate(runs)
+    extra = 8192 // C + 3 - len(runs)
+    if extra > 0:
+        keys = np.concatenate([keys, sr_runs(rng, C, extra + 1)[C:]])
+    return keys.astype(np.int32)
+
+
+def sr_wide_edge_keys(rng, C=32768):
+    """K8's two key planes from ``sr_edge_runs``: key k becomes (k >> 4,
+    (k & 15) - 8), the same order and groups, with negative second keys
+    and first keys past 2^23; SENTINEL stays SENTINEL in both."""
+    k = sr_edge_runs(rng, C).astype(np.int64)
+    sent = k == SENTINEL
+    kh = np.where(sent, SENTINEL, k >> 4).astype(np.int32)
+    kl = np.where(sent, SENTINEL, (k & 15) - 8).astype(np.int32)
+    return kh, kl
+
+
+def sr_pair1_edge_runs(rng, C=32768):
+    """K7 keys (rank 0: (j << 1) | is_product) of C-slot runs whose
+    sorted groups start exactly at the layouts' edges (multiples of 8,
+    256 and 8192 below C, and C / 2):
+      0. at each edge b, a mask token at sorted slot b - 1 and the
+         products of its twin from b on (at 32768 the group from 8192
+         runs into the third block);
+      1. the same without the tokens: the slot before b holds another
+         group's product (key - 2);
+      2. at each edge, a token at b - 1 whose products never come, and
+         products from b on whose token sits elsewhere;
+    the other slots random groups of 1-5 products, about a third of them
+    with their token; one SENTINEL pad; each run shuffled."""
+    edges = sorted({e for e in (8, 256, 8192, 16384, 24576, C // 2)
+                    if e < C})
+    runs = []
+    for kind in range(3):
+        out, g, pos = [], 1, 0
+        for b in edges + [C]:
+            if pos > b - 1:
+                continue                  # inside the group before
+            while pos < b - 1:
+                L = int(min(rng.integers(1, 6), b - 1 - pos))
+                tok = rng.random() < 0.3 and L > 1
+                out += [g << 1] * tok + [(g << 1) | 1] * (L - tok)
+                pos += L
+                g += 1
+            if b == C:
+                break
+            if kind == 0:
+                out.append(g << 1)                       # the twin
+            elif kind == 1:
+                out.append(((g - 1) << 1) | 1)           # key - 2
+            else:
+                out.append((g + 1) << 1)                 # another's token
+            n = 8 if b == edges[0] else int(rng.integers(1, 40))
+            if b == 8192 and C == 32768:
+                n = 8192 + 300
+            if kind == 2:
+                out += [((g + 2) << 1) | 1] * n
+                g += 3
+            else:
+                out += [(g << 1) | 1] * n
+                g += 1
+            pos = b + n
+        k = np.asarray(out[:C - 1] + [SENTINEL] * (C - min(len(out), C - 1)),
+                       np.int64)
+        rng.shuffle(k)
+        runs.append(k)
     return np.concatenate(runs).astype(np.int32)
 
 
@@ -160,6 +240,47 @@ def sr_pair1_keys(rng, C, runs=64):
         pk[r, L - tok.size:L] = tok
         rng.shuffle(pk[r])
     return pk.reshape(-1).astype(np.int32)
+
+
+def sr_cases(rng, C, edge, on):
+    """The K5-K8 calls that hold the kernels against their plain versions
+    at C: on random runs (``edge`` False; 64 runs, or 8192 / C + 5 at C <
+    8192 so the last block is partly filled) or on the layouts' edge runs,
+    each plane made by ``on`` (a numpy array -> the tensor to pass).
+    Yields (kernel, wrapper, plain version, args, kwargs, exact)."""
+    runs = 64 if C >= 8192 else 8192 // C + 5
+    keys = sr_edge_runs(rng, C) if edge else sr_runs(rng, C, runs)
+    vals = {k: on(sr_values(rng, keys.size, k))
+            for k in ("f32", "i32", "bool")}
+    toks = on(sr_tokens(rng, keys, C))
+    for kind, mon in (("i32", "PLUS"), ("f32", "PLUS"), ("f32", "MIN"),
+                      ("f32", "MAX"), ("bool", "LOR")):
+        args = (on(keys), vals[kind], C, getattr(TM, mon))
+        exact = not (kind == "f32" and mon == "PLUS")
+        kw = {"logical": kind == "bool"}
+        yield ("K5", SRD.sort_reduce_rows, SRD.sort_reduce_rows_plain, args,
+               kw, exact)
+        for want in (True, False):
+            yield ("K6", SRD.sort_reduce_rows_tok,
+                   SRD.sort_reduce_rows_tok_plain,
+                   args[:2] + (toks,) + args[2:], dict(kw, want_token=want),
+                   exact)
+    kh, kl = sr_wide_edge_keys(rng, C) if edge else \
+        sr_wide_keys(rng, C, runs)[:2]
+    tw = on(sr_tokens(rng, kh.astype(np.int64) << 32
+                      | (kl.astype(np.int64) & 0xffffffff), C))
+    for mon, kind in (("PLUS", "f32"), ("MIN", "f32"), ("PLUS", "i32")):
+        for tk, want in ((None, True), (tw, True), (tw, False)):
+            yield ("K8", SRD.sort_reduce_rows_wide,
+                   SRD.sort_reduce_rows_wide_plain,
+                   (on(kh), on(kl), vals[kind], C, getattr(TM, mon)),
+                   dict(toks=tk, want_token=want),
+                   not (kind == "f32" and mon == "PLUS"))
+    pk = on(sr_pair1_edge_runs(rng, C) if edge else
+            sr_pair1_keys(rng, C, runs))
+    for want in (True, False):
+        yield ("K7", SRD.sort_reduce_pair1, SRD.sort_reduce_pair1_plain,
+               (pk, C), dict(want_token=want), True)
 
 
 def sr_err(got, want, exact):

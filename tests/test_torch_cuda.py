@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (SpMV K1-K4, sort-reduce K5-K8, the
+"""The port's CUDA kernels (SpMV K1-K4, sort-reduce K5-K8 at every C, the
 gather-permute K9) against their plain torch versions, and the fast
 SpGEMM tier on K5/K6 against scipy, on a card.
 
@@ -302,13 +302,49 @@ def test_sort_reduce_cluster_edge_runs(cuda_device, kind, mon):
             assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-def test_sort_reduce_cluster_refuses_k7_k8(cuda_device):
-    keys = torch.full((32768,), SENT, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):
-        SRD.sort_reduce_pair1(keys, 32768)
-    with pytest.raises(ValueError):
-        SRD.sort_reduce_rows_wide(keys, keys, torch.zeros_like(keys), 32768,
-                                  TM.PLUS)
+def test_sort_reduce_cluster_k7_k8_match_plain(cuda_device):
+    """K7 and K8 (with and without tokens) at C = 32768 on the cluster
+    kernel: random runs, an empty and a full run."""
+    C = 32768
+    rng = np.random.default_rng(99)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    pk = t(GT.sr_pair1_keys(rng, C, runs=5))
+    for want in (True, False):
+        got = SRD.sort_reduce_pair1(pk, C, want_token=want)
+        torch.cuda.synchronize()
+        GT.sr_err(got, SRD.sort_reduce_pair1_plain(pk, C, want_token=want),
+                  True)
+    kh, kl, tw = GT.sr_wide_keys(rng, C, runs=5)
+    args = (t(kh), t(kl), t(GT.sr_values(rng, kh.size, "f32")), C, TM.PLUS)
+    for tk, want in ((None, True), (t(tw), True), (t(tw), False)):
+        got = SRD.sort_reduce_rows_wide(*args, toks=tk, want_token=want)
+        torch.cuda.synchronize()
+        GT.sr_err(got, SRD.sort_reduce_rows_wide_plain(
+            *args, toks=tk, want_token=want), False)
+
+
+@pytest.mark.parametrize("C", SRD.CAPS)
+@pytest.mark.parametrize("edge,by", [(False, 0), (True, 0), (True, 1)])
+def test_sort_reduce_kernels_match_plain_everywhere(cuda_device, C, edge,
+                                                    by):
+    """K5, K6, K7 and K8 at every C (one block of 8192 / C runs, or a
+    cluster at 32768): random runs whose count is no multiple of a block's
+    runs, and the layouts' edge runs (``testing.sr_cases``), with the
+    planes 16-byte aligned and one element past a 16-byte boundary; each
+    call launches once, matches its plain version and gives the same bits
+    twice."""
+    rng = np.random.default_rng(C + 2 * edge + by)
+    on = lambda a: GT.shifted(torch.from_numpy(a).to(cuda_device),  # noqa
+                              by)
+    for key, fn, plain, args, kw, exact in GT.sr_cases(rng, C, edge, on):
+        before = SRD.launches_by_cap.get((fn.__name__, C), 0)
+        got, again = fn(*args, **kw), fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert SRD.launches_by_cap[(fn.__name__, C)] == before + 2, key
+        GT.sr_err(got, plain(*args, **kw), exact)
+        if not isinstance(got, tuple):
+            got, again = (got,), (again,)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), key
 
 
 @pytest.mark.parametrize("n,dtype", [((1 << 20) + 3, torch.float32),

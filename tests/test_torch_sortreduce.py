@@ -1,9 +1,11 @@
 """Port parity: the plain versions of the sort-reduce kernels K5-K8
 (graphblas_tpu_torch.kernels.sortreduce) against the JAX package's
-Pallas kernels run in interpret mode, at C in {128, 512, 2048}, and K5/K6
-at C = 32768 (the fast tier's top class) against a numpy sort-and-group,
-also on the edge runs of the C = 32768 kernel's layout
-(``testing.sr_edge_runs``) against a vectorised numpy reference.
+Pallas kernels run in interpret mode, at C in {128, 512, 2048} (and K7 /
+K8 at C = 32768, marked slow), and at C = 32768 (the fast tier's top
+class) against a numpy sort-and-group, also on the edge runs of the
+kernels' layouts (``testing.sr_edge_runs``, ``sr_pair1_edge_runs``,
+``sr_wide_edge_keys``) at C in {512, 2048, 8192, 32768} against a
+vectorised numpy reference.
 
 Inputs (numpy, from a seed): runs with many duplicate keys, empty
 (all-SENTINEL) runs, full runs and partly filled runs.  Only kept slots
@@ -164,27 +166,74 @@ def test_sort_reduce_rows_wide_matches(C, kind, mon, tok, want):
     _check(okh_j, ov_j, okh_t, ov_t, kind, mon, okl_j, okl_t)
 
 
-def _numpy_sort_reduce(keys, vals, C, ufunc, toks=None, want=True):
-    """Per run: the kept unique keys in ascending order and their totals
-    (``ufunc.reduceat`` over the stably sorted values, fp32 plus summed
-    in fp64), vectorised for runs of many groups."""
+def _packed(keys, keys2):
+    """int64 keys in the (keys, keys2) lexicographic order, same groups."""
+    if keys2 is None:
+        return keys.astype(np.int64)
+    return (keys.astype(np.int64) << 32) + (keys2.astype(np.int64) + 2**31)
+
+
+def _numpy_sort_reduce(keys, vals, C, ufunc, toks=None, want=True,
+                       keys2=None):
+    """Per run: the kept unique keys in ascending order (``_packed`` with
+    keys2) and their totals (``ufunc.reduceat`` over the stably sorted
+    values, fp32 plus summed in fp64), vectorised for runs of many
+    groups."""
     R = keys.size // C
-    order = np.argsort(keys.reshape(R, C), axis=1, kind="stable")
+    pk = _packed(keys, keys2)
+    order = np.argsort(pk.reshape(R, C), axis=1, kind="stable")
     order = (order + np.arange(R)[:, None] * C).reshape(-1)
-    sk = keys[order].astype(np.int64)
+    sk = pk[order]
     start = np.ones(sk.size, bool)
     start[1:] = sk[1:] != sk[:-1]
     start[::C] = True
     idx = np.flatnonzero(start)
     u = sk[idx]
     acc = ufunc.reduceat(vals[order].astype(np.float64), idx)
-    keep = u != SENT
+    keep = keys[order][idx] != SENT
     if toks is not None:
         tor = np.bitwise_or.reduceat(toks[order], idx)
         keep &= ((tor & 2) != 0) & (((tor & 1) != 0) == want)
     run = idx // C
     return [(u[keep & (run == r)], acc[keep & (run == r)])
             for r in range(R)]
+
+
+def _numpy_pair1(keys, C, want):
+    """K7's count plane: per run sorted, each group's product count at its
+    last slot where the group is kept (products, a count, and a mask twin
+    -- the key - 1 just before the group -- present iff ``want``), 0
+    elsewhere; the plane in sorted order per run."""
+    sk = np.sort(keys.reshape(-1, C).astype(np.int64), axis=1).reshape(-1)
+    pos = np.arange(sk.size) % C
+    start = np.ones(sk.size, bool)
+    start[1:] = sk[1:] != sk[:-1]
+    start |= pos == 0
+    idx = np.flatnonzero(start)
+    ends = np.append(idx[1:], sk.size) - 1
+    u = sk[idx]
+    twin = (pos[idx] != 0) & (sk[np.maximum(idx - 1, 0)] == u - 1)
+    cnt = ends - idx + 1
+    keep = (u != SENT) & (u & 1 == 1) & (twin == want)
+    out = np.zeros(sk.size, np.int32)
+    out[ends[keep]] = cnt[keep]
+    return out
+
+
+def _check_runs(ok, ov, want, C, kind, mon, ok2=None):
+    """Kept slots of (ok[, ok2], ov) against ``_numpy_sort_reduce``."""
+    for r, (u, tot) in enumerate(want):
+        k = ok[r * C:(r + 1) * C]
+        kept = k != SENT
+        got_k = _packed(k[kept], None if ok2 is None
+                        else ok2[r * C:(r + 1) * C][kept])
+        np.testing.assert_array_equal(got_k, u)
+        got = ov[r * C:(r + 1) * C][kept].astype(np.float64)
+        if kind == "f32" and mon == "PLUS":
+            assert np.abs(got - tot).max(initial=0) <= \
+                FP32_TOL * np.abs(tot).max(initial=0)
+        else:
+            np.testing.assert_array_equal(got, tot.astype(got.dtype))
 
 
 @pytest.mark.parametrize("kind,mon,tok", [("f32", "PLUS", False),
@@ -211,33 +260,23 @@ def test_sort_reduce_plain_at_32768(kind, mon, tok):
     ufunc = {"PLUS": np.add, "MIN": np.minimum, "LOR": np.logical_or}[mon]
     want = _numpy_sort_reduce(keys, vals, C, ufunc, toks)
     ok, ov = ok.numpy(), ov.numpy()
-    for r, (u, tot) in enumerate(want):
-        k = ok[r * C:(r + 1) * C]
-        kept = k != SENT
-        np.testing.assert_array_equal(k[kept], u)
-        got = ov[r * C:(r + 1) * C][kept].astype(np.float64)
-        if kind == "f32":
-            assert np.abs(got - tot).max(initial=0) <= \
-                FP32_TOL * np.abs(tot).max(initial=0)
-        else:
-            np.testing.assert_array_equal(got, tot.astype(got.dtype))
+    _check_runs(ok, ov, want, C, kind, mon)
     if not tok:                                     # one key, one group
         assert (ok[2 * C:3 * C] != SENT).sum() == 1
 
 
-@pytest.mark.parametrize("kind,mon,tok,want", [
-    ("f32", "PLUS", False, True), ("i32", "PLUS", True, True),
-    ("f32", "MIN", True, False), ("bool", "LOR", True, True),
-    ("i32", "MAX", False, True)])
-def test_sort_reduce_plain_on_edge_runs(kind, mon, tok, want):
-    """K5 / K6 plain versions at C = 32768 on the cluster kernel's edge
-    runs (``testing.sr_edge_runs``: group boundaries at multiples of 8,
-    256 and 8192, a group over three blocks, all-distinct keys, a
-    descending run, keys 2^31 - 2 beside SENTINEL pads, a run whose only
-    real slot is its last) against a vectorised numpy sort-and-reduceat."""
+EDGE_CASES = [("f32", "PLUS", False, True), ("i32", "PLUS", True, True),
+              ("f32", "MIN", True, False), ("bool", "LOR", True, True),
+              ("i32", "MAX", False, True)]
+_UFUNCS = {"PLUS": np.add, "MIN": np.minimum, "MAX": np.maximum,
+           "LOR": np.logical_or}
+
+
+def _edge_check(C, kind, mon, tok, want):
+    """K5 / K6 plain versions on ``testing.sr_edge_runs`` at C against a
+    vectorised numpy sort-and-reduceat; returns the kept keys plane."""
     from graphblas_tpu_torch import testing as GT
-    C = 32768
-    rng = np.random.default_rng(len(kind) + len(mon) + 5 * tok)
+    rng = np.random.default_rng(len(kind) + len(mon) + 5 * tok + C)
     keys = GT.sr_edge_runs(rng, C)
     vals = GT.sr_values(rng, keys.size, kind)
     toks = GT.sr_tokens(rng, keys, C) if tok else None
@@ -250,29 +289,137 @@ def test_sort_reduce_plain_on_edge_runs(kind, mon, tok, want):
     else:
         ok, ov = SRD.sort_reduce_rows(*args, C, getattr(TM, mon),
                                       logical=logical)
-    ufunc = {"PLUS": np.add, "MIN": np.minimum, "MAX": np.maximum,
-             "LOR": np.logical_or}[mon]
-    expect = _numpy_sort_reduce(keys, vals, C, ufunc, toks, want)
+    expect = _numpy_sort_reduce(keys, vals, C, _UFUNCS[mon], toks, want)
     ok, ov = ok.numpy(), ov.numpy()
-    for r, (u, tot) in enumerate(expect):
-        k = ok[r * C:(r + 1) * C]
-        kept = k != SENT
-        np.testing.assert_array_equal(k[kept], u)
-        got = ov[r * C:(r + 1) * C][kept].astype(np.float64)
-        if kind == "f32" and mon == "PLUS":
-            assert np.abs(got - tot).max(initial=0) <= \
-                FP32_TOL * np.abs(tot).max(initial=0)
-        else:
-            np.testing.assert_array_equal(got, tot.astype(got.dtype))
-    assert sum(u.size for u, _ in expect) > 1000  # many groups are kept
+    _check_runs(ok, ov, expect, C, kind, mon)
+    assert sum(u.size for u, _ in expect) > C // 32  # many groups kept
+    return ok
+
+
+@pytest.mark.parametrize("kind,mon,tok,want", EDGE_CASES)
+def test_sort_reduce_plain_on_edge_runs(kind, mon, tok, want):
+    """K5 / K6 plain versions at C = 32768 on the cluster kernel's edge
+    runs (``testing.sr_edge_runs``: group boundaries at multiples of 8,
+    256 and 8192, a group over three blocks, a group to the run's end,
+    all-distinct keys, a descending run, keys 2^31 - 2 beside SENTINEL
+    pads, a run whose only real slot is its last) against a vectorised
+    numpy sort-and-reduceat."""
+    C = 32768
+    ok = _edge_check(C, kind, mon, tok, want)
     if not tok:                # the last run keeps its one real slot
-        assert (ok[5 * C:] != SENT).sum() == 1
+        assert (ok[6 * C:7 * C] != SENT).sum() == 1
+
+
+@pytest.mark.parametrize("C", (512, 2048, 8192))
+@pytest.mark.parametrize("kind,mon,tok,want", EDGE_CASES[:3])
+def test_sort_reduce_plain_on_block_edge_runs(C, kind, mon, tok, want):
+    """The same at the one-block classes: group boundaries at multiples of
+    8 and 256, a group that ends at a run's end where the next run starts
+    with the same key inside one block of 8192 slots, and a last block
+    only partly filled (8192 / C + 3 runs)."""
+    ok = _edge_check(C, kind, mon, tok, want)
+    if not tok:
+        assert (ok[6 * C:7 * C] != SENT).sum() == 1
+        # run 2's last group and run 3's first share key 9: two groups
+        assert ok[3 * C - 1] == 9 and (ok[3 * C:4 * C] == 9).sum() == 1
+
+
+def _pair1_keys(C, seed):
+    """K7 keys: sr_pair1_keys' runs (empty, full, partly filled, with mask
+    twins) then the layouts' edge runs."""
+    from graphblas_tpu_torch import testing as GT
+    rng = np.random.default_rng(seed)
+    return np.concatenate([GT.sr_pair1_keys(rng, C, runs=4),
+                           GT.sr_pair1_edge_runs(rng, C)])
+
+
+@pytest.mark.parametrize("C", (512, 2048, 8192, 32768))
+@pytest.mark.parametrize("want", (True, False))
+def test_sort_reduce_pair1_plain_matches_numpy(C, want):
+    """K7's plain version at every one-block class and at C = 32768 (the
+    cluster kernel's) against a numpy sort-and-count, exact: twins at the
+    thread, warp and block edges, a twin group over two blocks, tokens
+    without products and products without tokens."""
+    keys = _pair1_keys(C, C + want)
+    got = SRD.sort_reduce_pair1(torch.from_numpy(keys), C,
+                                want_token=want).numpy()
+    expect = _numpy_pair1(keys, C, want)
+    np.testing.assert_array_equal(got, expect)
+    assert (expect > 0).sum() > 10
+
+
+WIDE_CASES = [("f32", "PLUS", False, True), ("i32", "MIN", True, True),
+              ("bool", "LOR", True, False)]
+
+
+@pytest.mark.parametrize("kind,mon,tok,want", WIDE_CASES)
+def test_sort_reduce_wide_plain_at_32768(kind, mon, tok, want):
+    """K8's plain version at C = 32768 against a numpy lexicographic
+    sort-and-reduceat: sr_wide_keys' runs (empty, full, partly filled;
+    only the second key tells many keys apart) and the edge runs as key
+    pairs (first keys past 2^23, negative second keys)."""
+    from graphblas_tpu_torch import testing as GT
+    C = 32768
+    rng = np.random.default_rng(31 + len(kind) + tok)
+    kh, kl, _ = GT.sr_wide_keys(rng, C, runs=3)
+    eh, el = GT.sr_wide_edge_keys(rng, C)
+    kh, kl = np.concatenate([kh, eh]), np.concatenate([kl, el])
+    vals = GT.sr_values(rng, kh.size, kind)
+    toks = GT.sr_tokens(rng, _packed(kh, kl), C) if tok else None
+    okh, okl, ov = SRD.sort_reduce_rows_wide(
+        torch.from_numpy(kh), torch.from_numpy(kl), torch.from_numpy(vals),
+        C, getattr(TM, mon), toks=None if toks is None
+        else torch.from_numpy(toks), want_token=want,
+        logical=kind == "bool")
+    expect = _numpy_sort_reduce(kh, vals, C, _UFUNCS[mon], toks, want,
+                                keys2=kl)
+    _check_runs(okh.numpy(), ov.numpy(), expect, C, kind, mon, okl.numpy())
+    assert sum(u.size for u, _ in expect) > 1000
+    assert (okh.numpy()[okh.numpy() != SENT] >= 1 << 23).any()
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("want", (True, False))
+def test_sort_reduce_pair1_matches_jax_at_32768(want):
+    """K7 at C = 32768 against the JAX package's Pallas kernel in
+    interpret mode: an empty run and a full run with mask twins."""
+    from graphblas_tpu_torch import testing as GT
+    C = 32768
+    keys = GT.sr_pair1_keys(np.random.default_rng(41 + want), C, runs=2)
+    ov_j = np.asarray(JSRD.sort_reduce_pair1(
+        _jx(keys), C, want_token=want, interpret=True)).reshape(-1)
+    ov_t = SRD.sort_reduce_pair1(torch.from_numpy(keys), C,
+                                 want_token=want).numpy()
+    assert (ov_j > 0).any()
+    np.testing.assert_array_equal(ov_t, ov_j)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("tok", (False, True))
+def test_sort_reduce_rows_wide_matches_jax_at_32768(tok):
+    """K8 at C = 32768 against the JAX package's Pallas kernel in
+    interpret mode: an empty run and a full run, first keys past 2^23."""
+    from graphblas_tpu_torch import testing as GT
+    C = 32768
+    rng = np.random.default_rng(43 + tok)
+    kh, kl, tw = GT.sr_wide_keys(rng, C, runs=2)
+    kh = np.where(kh == SENT, SENT, kh + (1 << 24)).astype(np.int32)
+    vals = GT.sr_values(rng, kh.size, "f32")
+    toks = tw if tok else None
+    okh_j, okl_j, ov_j = JSRD.sort_reduce_rows_wide(
+        _jx(kh), _jx(kl), _jx(vals), C, JM.PLUS,
+        toks=None if toks is None else _jx(toks), interpret=True)
+    okh_t, okl_t, ov_t = SRD.sort_reduce_rows_wide(
+        torch.from_numpy(kh), torch.from_numpy(kl), torch.from_numpy(vals),
+        C, TM.PLUS, toks=None if toks is None else torch.from_numpy(toks))
+    _check(okh_j, ov_j, okh_t, ov_t, "f32", "PLUS", okl_j, okl_t)
 
 
 def test_probe_switches_match_the_kernel_source():
-    """tools/probe_sortreduce.py switches groups of the C = 32768 kernel's
-    stages off by guarding their calls in csrc/sortreduce.cu: every call
-    it guards is still there, and its 16-slot variant changes kP."""
+    """tools/probe_sortreduce.py switches groups of the kernels' stages
+    off by guarding their calls in csrc/sortreduce.cu: every call it
+    guards is still there, its w32 variant changes the one-block kernel's
+    warps, and only the fp32 PLUS entry stays instantiated."""
     from graphblas_tpu_torch.kernels import _cuda
     from graphblas_tpu_torch.tools import probe_sortreduce as PR
     src = _cuda.SOURCES["sortreduce"].read_text()
@@ -281,7 +428,10 @@ def test_probe_switches_match_the_kernel_source():
         for g in "ABTPX":
             assert f"#define NO_{g} {int(g in off)}" in out
             assert f"if (!NO_{g}" in out, (name, g)
-    assert "constexpr int kP = 16;" in PR.variant_source(src, "", p=16)
+        assert "launch_sr<float, OP_PLUS>" in out
+        assert "launch_sr<int32_t, OP_PLUS>" not in out
+    assert "constexpr int kRunWarps = 32;" in PR.variant_source(src, "",
+                                                                 warps=32)
 
 
 def test_wrappers_refuse_bad_capacity():
@@ -289,9 +439,6 @@ def test_wrappers_refuse_bad_capacity():
     with pytest.raises(ValueError):
         SRD.sort_reduce_rows(keys, torch.zeros(96), 96, TM.PLUS)
     with pytest.raises(ValueError):
-        SRD.sort_reduce_pair1(torch.full((32768,), SENT, dtype=torch.int32),
-                              32768)
-    big = torch.full((32768,), SENT, dtype=torch.int32)
-    with pytest.raises(ValueError):         # K8 takes C <= 8192 only
-        SRD.sort_reduce_rows_wide(big, big, torch.zeros(32768), 32768,
-                                  TM.PLUS)
+        SRD.sort_reduce_pair1(keys, 96)
+    with pytest.raises(ValueError):
+        SRD.sort_reduce_rows_wide(keys, keys, torch.zeros(96), 96, TM.PLUS)
