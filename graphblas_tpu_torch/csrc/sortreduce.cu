@@ -68,7 +68,7 @@
 // the run slot g, ascending at k = C, and each run's first slot is a group
 // start to the scan.  No cluster, no carry; runs past nruns are SENTINEL
 // in registers and are not stored.  Shared memory holds one exchange
-// buffer (none at C <= 256).
+// buffer (none at C = 128).
 //
 // C = 32768: sort_reduce_cluster_regs_kernel<V, OP, MODE>.  One run is 128
 // KB of keys and values (160 KB with tokens) and the sort needs room to
@@ -554,6 +554,28 @@ __device__ __forceinline__ bool twin_of(int32_t before, int32_t k) {
   return static_cast<uint32_t>(before) + 1u == static_cast<uint32_t>(k);
 }
 
+// The keys beside the thread's slots in its block of NW warps, after the
+// sort: ``prev`` before its first slot and ``next`` after its last (the
+// block's first and last threads get their own first and last key).  Each
+// warp's first and last key go through s_first / s_last, which stay
+// readable by the block (and its cluster) after the one __syncthreads.
+template <int NW, int MODE, typename V>
+__device__ __forceinline__ void block_edges(const Tile<MODE, V>& r,
+                                            typename ModeT<MODE>::K* s_first,
+                                            typename ModeT<MODE>::K* s_last,
+                                            typename ModeT<MODE>::K& prev,
+                                            typename ModeT<MODE>::K& next) {
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) s_first[w] = r.k[0];
+  if (lane == 31) s_last[w] = r.k[kP - 1];
+  __syncthreads();
+  prev = __shfl_up_sync(kFull, r.k[kP - 1], 1);
+  if (lane == 0) prev = w > 0 ? s_last[w - 1] : r.k[0];
+  next = __shfl_down_sync(kFull, r.k[0], 1);
+  if (lane == 31 && w + 1 < NW) next = s_first[w + 1];
+}
+
 // Group starts after the sort (flag bit 0; tokens move up one bit), and
 // K7's values: 1 a product, plus kTwin at a group start with a twin.
 // ``prev`` is the key before the thread's first slot, ``first_start``
@@ -725,13 +747,8 @@ sort_reduce_block_regs_kernel(Planes pl, int64_t nslots) {
 
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (lane == 0) s_first[w] = r.k[0];
-  if (lane == 31) s_last[w] = r.k[kP - 1];
-  __syncthreads();
-  K prev = __shfl_up_sync(kFull, r.k[kP - 1], 1);
-  if (lane == 0) prev = w > 0 ? s_last[w - 1] : r.k[0];
-  K next = __shfl_down_sync(kFull, r.k[0], 1);
-  if (lane == 31 && w + 1 < NW) next = s_first[w + 1];
+  K prev, next;
+  block_edges<NW>(r, s_first, s_last, prev, next);
   const bool run_first = (sa & (C - 1)) == 0;
   start_flags(r, prev, run_first, !run_first);
   const Prefix<V> p = scan_block<V, OP, NW>(r, s_wv, s_wf);
@@ -878,13 +895,8 @@ sort_reduce_cluster_regs_kernel(Planes pl) {
   // edges.
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (lane == 0) s_first[w] = r.k[0];
-  if (lane == 31) s_last[w] = r.k[kP - 1];
-  __syncthreads();
-  K prev = __shfl_up_sync(kFull, r.k[kP - 1], 1);
-  if (lane == 0) prev = w > 0 ? s_last[w - 1] : r.k[0];
-  K next = __shfl_down_sync(kFull, r.k[0], 1);
-  if (lane == 31 && w + 1 < kCWarps) next = s_first[w + 1];
+  K prev, next;
+  block_edges<kCWarps>(r, s_first, s_last, prev, next);
   start_flags(r, prev, false, true);
   const Prefix<V> p = scan_block<V, OP, kCWarps>(r, s_wv, s_wf);
   if (threadIdx.x == 0) {
@@ -1027,9 +1039,9 @@ cudaError_t launch_cluster_t(const Planes& pl, int64_t nruns,
   return cudaLaunchKernelEx(&cfg, kernel, pl);
 }
 
-// C a power of two in [kP, kQ], or kBigC
+// C one of the sort classes (CAPS in kernels/sortreduce.py)
 bool class_ok(int64_t C) {
-  return (C & (C - 1)) == 0 && ((C >= kP && C <= kQ) || C == kBigC);
+  return C == 128 || C == 512 || C == 2048 || C == kQ || C == kBigC;
 }
 
 template <typename V, int OP, int MODE>

@@ -89,8 +89,9 @@ def sr_runs(rng, C, runs=64, hi=40):
 def sr_edge_runs(rng, C=32768):
     """int32 keys of C-slot runs (C = 32768 by default; any C in 128 ...
     32768) at the edges of the kernels' layouts (8 slots a thread, 256 a
-    warp, 8192 a block, C = 32768 on a cluster of 4 blocks), each run
-    shuffled unless said otherwise:
+    warp, a block of 2048 slots at C <= 2048 and of 8192 at C = 8192,
+    C = 32768 on a cluster of 4 blocks of 8192), each run shuffled unless
+    said otherwise:
       0. group boundaries exactly at multiples of 8 (a thread's slots),
          256 (a warp's) and C / 4 in the sorted run;
       1. one group over sorted slots [0.27 C, 0.76 C) (at 32768 it spans
@@ -104,7 +105,9 @@ def sr_edge_runs(rng, C=32768):
          SENTINEL pads and large keys;
       6. SENTINEL everywhere but the last slot (not shuffled);
     then, for C < 8192, random partly filled runs up to 8192 / C + 3 runs
-    in all, so the last block of 8192 slots is only partly filled."""
+    in all.  At C = 128 and 512, where a block holds 16 and 4 runs side by
+    side, the last block is then only partly filled; at C = 2048 one run
+    fills a block, so neither case arises there."""
     q = C // 4
     s = np.arange(C, dtype=np.int64)
     bounds = np.where(s < q // 4, s // 8,
@@ -245,7 +248,8 @@ def sr_pair1_keys(rng, C, runs=64):
 def sr_cases(rng, C, edge, on):
     """The K5-K8 calls that hold the kernels against their plain versions
     at C: on random runs (``edge`` False; 64 runs, or 8192 / C + 5 at C <
-    8192 so the last block is partly filled) or on the layouts' edge runs,
+    8192, which leaves the last 2048-slot block partly filled at C = 128
+    and 512) or on the layouts' edge runs,
     each plane made by ``on`` (a numpy array -> the tensor to pass).
     Yields (kernel, wrapper, plain version, args, kwargs, exact)."""
     runs = 64 if C >= 8192 else 8192 // C + 5

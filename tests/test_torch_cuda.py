@@ -302,34 +302,15 @@ def test_sort_reduce_cluster_edge_runs(cuda_device, kind, mon):
             assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-def test_sort_reduce_cluster_k7_k8_match_plain(cuda_device):
-    """K7 and K8 (with and without tokens) at C = 32768 on the cluster
-    kernel: random runs, an empty and a full run."""
-    C = 32768
-    rng = np.random.default_rng(99)
-    t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
-    pk = t(GT.sr_pair1_keys(rng, C, runs=5))
-    for want in (True, False):
-        got = SRD.sort_reduce_pair1(pk, C, want_token=want)
-        torch.cuda.synchronize()
-        GT.sr_err(got, SRD.sort_reduce_pair1_plain(pk, C, want_token=want),
-                  True)
-    kh, kl, tw = GT.sr_wide_keys(rng, C, runs=5)
-    args = (t(kh), t(kl), t(GT.sr_values(rng, kh.size, "f32")), C, TM.PLUS)
-    for tk, want in ((None, True), (t(tw), True), (t(tw), False)):
-        got = SRD.sort_reduce_rows_wide(*args, toks=tk, want_token=want)
-        torch.cuda.synchronize()
-        GT.sr_err(got, SRD.sort_reduce_rows_wide_plain(
-            *args, toks=tk, want_token=want), False)
-
-
 @pytest.mark.parametrize("C", SRD.CAPS)
 @pytest.mark.parametrize("edge,by", [(False, 0), (True, 0), (True, 1)])
 def test_sort_reduce_kernels_match_plain_everywhere(cuda_device, C, edge,
                                                     by):
-    """K5, K6, K7 and K8 at every C (one block of 8192 / C runs, or a
-    cluster at 32768): random runs whose count is no multiple of a block's
-    runs, and the layouts' edge runs (``testing.sr_cases``), with the
+    """K5, K6, K7 and K8 at every C (2048 / C runs side by side in a
+    256-thread block at C <= 2048, one run a 1024-thread block at 8192, a
+    cluster of 4 such blocks at 32768; at 32768 this is also K7 and K8 on
+    the cluster kernel): random runs whose count is no multiple of a
+    block's runs, and the layouts' edge runs (``testing.sr_cases``), with the
     planes 16-byte aligned and one element past a 16-byte boundary; each
     call launches once, matches its plain version and gives the same bits
     twice."""

@@ -315,8 +315,10 @@ def test_sort_reduce_plain_on_edge_runs(kind, mon, tok, want):
 def test_sort_reduce_plain_on_block_edge_runs(C, kind, mon, tok, want):
     """The same at the one-block classes: group boundaries at multiples of
     8 and 256, a group that ends at a run's end where the next run starts
-    with the same key inside one block of 8192 slots, and a last block
-    only partly filled (8192 / C + 3 runs)."""
+    with the same key, and 8192 / C + 3 runs.  The kernel's blocks hold
+    2048 slots at C <= 2048 and 8192 at C = 8192, so only C = 512 puts
+    those two runs side by side in one block and leaves the last block
+    partly filled; at C = 2048 and 8192 a run fills its block."""
     ok = _edge_check(C, kind, mon, tok, want)
     if not tok:
         assert (ok[6 * C:7 * C] != SENT).sum() == 1
