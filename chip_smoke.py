@@ -73,7 +73,24 @@ Phases, each printing one line (more for the per-graph phases):
      shared memory on this card;
  13. K9: global_permute of graph (a)'s CSR -> CSC value permutation
      (launches counted), exact against the plain version and scipy's CSC
-     values, timed beside its bound and one torch.take.
+     values, timed beside its bound and one torch.take;
+ 14. eWise, pending events, unsigned arithmetic and the GrB-tier
+     algorithms at graph (b), weights 1..255 from a seed, each exact
+     against scipy/numpy on the host: ewise_add PLUS, ewise_mult TIMES,
+     ewise_union MINUS of A and A' (gt.transpose), and ewise_add under a
+     structural mask; ewise_add PLUS and MIN and ewise_mult LT and DIV of
+     the same pattern as UINT64, w where w is even and 2^64 - w where it
+     is odd (PLUS wraps; MIN, LT and DIV order values across 2^63); the
+     dense path on a BITMAP and a SPARSE vector of 2^24; 100,000
+     set_element calls (half on stored entries, repeats) and 20,000
+     remove_element calls (some on entries queued before) on a copy of A,
+     then wait(), against the events applied in order; bfs_parents from
+     the vertex of highest out-degree (each parent an in-neighbour one
+     level up, the reached set scipy's), connected_components (scipy's
+     weak components, least-vertex labels) and sssp_grb (Dijkstra); each
+     step's wall cold and warm, one warm ewise_add under torch.profiler
+     with the device idle share, and the K1-K9 launches during the phase
+     (no kernel lies on this path).
 The two lines before the last are the card (nvidia-smi) and one JSON
 object describing the kernels of the main paths (K7 and K8 at 32768, which
 no path runs, print their checks and times in phases 3 and 12 only); the
@@ -1151,6 +1168,277 @@ def phase_trace(card):
     traced("triangle_count RMAT-18", lambda: gt.triangle_count(A18), card)
 
 
+# ---------------------------------------------------------------------------
+# 14. eWise, pending tuples, unsigned arithmetic and the GrB-tier algorithms
+# ---------------------------------------------------------------------------
+
+def kernel_launches():
+    """K1-K9 launch counts as the wrappers keep them."""
+    from graphblas_tpu_torch.kernels import sortreduce as SRD
+    from graphblas_tpu_torch.kernels import spmv_onehot as OH
+    from graphblas_tpu_torch.kernels import spmv_route as SPR
+    from graphblas_tpu_torch.kernels import static_route as STR
+    out = {"K1": SPR.launches["spmv_route"], "K2": OH.launches,
+           "K3": SPR.launches["spmv_route_monoid"],
+           "K4": SPR.launches["spmv_route_ds"], "K9": STR.launches}
+    out.update({k: SRD.launches[n] for k, n in SR_WRAPPERS.items()})
+    return dict(sorted(out.items()))
+
+
+def reset_kernel_launches():
+    from graphblas_tpu_torch.kernels import sortreduce as SRD
+    from graphblas_tpu_torch.kernels import spmv_onehot as OH
+    from graphblas_tpu_torch.kernels import spmv_route as SPR
+    from graphblas_tpu_torch.kernels import static_route as STR
+    OH.launches = 0
+    STR.launches = 0
+    for k in SPR.launches:
+        SPR.launches[k] = 0
+    SRD.reset_launches()
+
+
+def host_entries(M):
+    """(row-major keys, values) of a port matrix, on the host."""
+    import graphblas_tpu_torch as gt
+    R = M.to_format(gt.SPARSE, gt.ROW)
+    return csr_keys(R).cpu().numpy(), R.values.cpu().numpy()
+
+
+def csr_host_keys(S):
+    """row * ncols + column of every entry of a scipy CSR matrix (int64,
+    ascending when its indices are sorted)."""
+    return np.repeat(np.arange(S.shape[0], dtype=np.int64),
+                     np.diff(S.indptr)) * S.shape[1] + S.indices
+
+
+def union_ref(W, Wt):
+    """Host union of two CSR matrices whose values are integers 1..255:
+    (keys, a, b), a and b 0 where absent.  One scipy sum W + 1000 Wt
+    (a linear merge, no sort) carries both values, a + 1000 b."""
+    E = (W.astype(np.int64) + 1000 * Wt.astype(np.int64)).tocsr()
+    E.sort_indices()
+    return csr_host_keys(E), E.data % 1000, E.data // 1000
+
+
+def assert_entries(M, keys, vals, what):
+    got_k, got_v = host_entries(M)
+    assert np.array_equal(got_k, keys), f"{what}: pattern"
+    assert got_v.dtype == vals.dtype and np.array_equal(got_v, vals), \
+        f"{what}: values"
+
+
+def two_walls(fn):
+    """(result, cold wall, warm wall): the first call and a second one."""
+    out, cold = timed(fn)
+    del out
+    out, warm = timed(fn)
+    return out, cold, warm
+
+
+def ewise_path(S, card):
+    """Phase 14 at graph (b): eWise add/mult/union of A and A' (a
+    structural mask too), the same as UINT64 on both sides of 2^63 (PLUS,
+    MIN, LT, DIV), the dense path on
+    two vectors of 2^24, 100,000 set_element and 20,000 remove_element
+    calls and wait(), and bfs_parents, connected_components and sssp_grb,
+    each held against scipy/numpy on the host (exact); walls cold and
+    warm, one warm ewise_add traced, K1-K9 launches during the phase."""
+    import scipy.sparse as sps
+    import scipy.sparse.csgraph as csg
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch import testing as GT
+    ops, T = gt.operators, gt.types
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(14)
+    n = S.shape[0]
+    W = S.copy()
+    W.data = rng.integers(1, 256, W.nnz).astype(np.float32)
+    Wt = W.T.tocsr()
+    A = gt.Matrix.from_scipy(W, device="cuda")
+    At = gt.transpose(A)                       # A' by column, logically
+    ka = csr_host_keys(W)
+    u, a, b = union_ref(W, Wt)
+    ha, hb = a > 0, b > 0
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    walls, parts = {}, {}
+    t_part = [t_phase]
+
+    def part(name):
+        """Seconds since the last part ended: where the phase's time
+        goes, host references included."""
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    part("setup")
+    reset_kernel_launches()
+    # eWise on fp32 integer weights (exact)
+    steps = {
+        "ewise_add_plus": (lambda: gt.ewise_add(A, At, ops.PLUS),
+                           u, a + b),
+        "ewise_mult_times": (lambda: gt.ewise_mult(A, At, ops.TIMES),
+                             u[ha & hb], (a * b)[ha & hb]),
+        "ewise_union_minus": (lambda: gt.ewise_union(A, 300, At, 7,
+                                                     ops.MINUS),
+                              u, np.where(ha, a, 300) - np.where(hb, b, 7)),
+        "ewise_add_masked": (lambda: gt.ewise_add(
+            A, At, ops.PLUS, mask=A, desc=gt.Descriptor(
+                mask_structure=True)), u[ha], (a + b)[ha]),
+    }
+    for name, (fn, keys, vals) in steps.items():
+        C, walls[name + "_cold"], walls[name + "_warm"] = two_walls(fn)
+        assert_entries(C, keys, vals.astype(np.float32), name)
+        del C
+    part("ewise_fp32")
+    # the same pattern as UINT64 on both sides of 2^63: w where w is even,
+    # 2^64 - w where it is odd.  PLUS wraps; MIN, LT and DIV must order
+    # and divide across the top bit, where a signed compare of the int64
+    # carrier would pick the other value
+    def both_sides(w):                  # 0 where w is absent
+        u = w.astype(np.uint64)
+        return np.where(u % np.uint64(2) == 0, u, np.uint64(0) - u)
+
+    W64 = W.astype(np.uint64)
+    W64.data = both_sides(W.data)
+    A64 = gt.Matrix.from_scipy(W64, device="cuda")
+    At64 = gt.transpose(A64)
+    assert A64.values.dtype == torch.uint64
+    a64, b64 = both_sides(a), both_sides(b)
+    both = ha & hb
+    top = np.uint64(1 << 63)
+    with np.errstate(over="ignore"):
+        plus64 = a64 + b64
+    min64 = np.where(both, np.minimum(a64, b64), np.where(ha, a64, b64))
+    assert (plus64[both] < a64[both]).any(), "no wrap in the reference"
+    assert ((a64[both] >= top) != (b64[both] >= top)).any(), \
+        "no pair across 2^63 in the reference"
+    for name, fn, keys, vals in (
+            ("ewise_add_plus_u64",
+             lambda: gt.ewise_add(A64, At64, ops.PLUS), u, plus64),
+            ("ewise_add_min_u64",
+             lambda: gt.ewise_add(A64, At64, ops.MIN), u, min64),
+            ("ewise_mult_lt_u64",
+             lambda: gt.ewise_mult(A64, At64, ops.LT), u[both],
+             a64[both] < b64[both]),
+            ("ewise_mult_div_u64",
+             lambda: gt.ewise_mult(A64, At64, ops.DIV), u[both],
+             a64[both] // b64[both])):
+        C, walls[name + "_cold"], walls[name + "_warm"] = two_walls(fn)
+        assert_entries(C, keys, vals, name)
+        del C
+    del A64, At64, W64, a64, b64, plus64, min64
+    part("ewise_u64")
+    # the dense path: a BITMAP and a SPARSE vector of 2^24
+    m = 1 << 24
+    xv = rng.integers(1, 100, m).astype(np.float32)
+    xp = rng.random(m) < 0.5
+    yi = np.flatnonzero(rng.random(m) < 0.1)
+    yv = rng.integers(1, 100, yi.size).astype(np.float32)
+    xd = gt.Vector.from_dense_masked(torch.from_numpy(xv).cuda(),
+                                     torch.from_numpy(xp).cuda())
+    yd = gt.Vector.from_coo(yi, yv, m, device="cuda")
+    C, walls["ewise_add_dense_cold"], walls["ewise_add_dense_warm"] = \
+        two_walls(lambda: gt.ewise_add(xd, yd, ops.PLUS))
+    want = np.where(xp, xv, 0)
+    want[yi] += yv
+    wp = xp.copy()
+    wp[yi] = True
+    assert C.fmt == "bitmap"
+    cv, cp = (t.cpu().numpy() for t in C.to_dense_1d())
+    assert np.array_equal(cp, wp) and np.array_equal(cv[cp], want[wp]), \
+        "dense path"
+    del C, xd, yd
+    part("dense")
+    # pending events on a copy of A, then wait()
+    pick = rng.integers(0, W.nnz, 1 << 20)
+    stored = np.stack([ka[pick] // n, ka[pick] % n], 1)
+    events = GT.pending_events(rng, (n, n), 100_000, 20_000, stored)
+
+    def queue_and_wait():
+        B = A.dup()
+        t0 = time.perf_counter()
+        for op, i, j, v in events:
+            if op == "set":
+                B.set_element(i, j, v)
+            else:
+                B.remove_element(i, j)
+        q = time.perf_counter() - t0
+        _, w = timed(B.wait)
+        return B, q, w
+
+    B, q_cold, walls["wait_cold"] = queue_and_wait()
+    r, c, v = GT.apply_events(ka // n, ka % n, W.data, events, (n, n))
+    assert_entries(B, r * n + c, v, "pending")
+    assert B.values.device.type == "cuda"
+    del B
+    _, q_warm, walls["wait_warm"] = queue_and_wait()
+    walls["queue_120000_events_cold"], walls["queue_120000_events_warm"] \
+        = q_cold, q_warm
+    part("pending")
+    # bfs_parents from the vertex of highest out-degree
+    src = int(np.argmax(np.diff(S.indptr)))
+    P, walls["bfs_parents_cold"], walls["bfs_parents_warm"] = two_walls(
+        lambda: gt.bfs_parents(A, src))
+    pv, pp = (t.cpu().numpy() for t in P.to_dense_1d())
+    lev = csg.shortest_path(S, unweighted=True, indices=src)
+    assert np.array_equal(pp, np.isfinite(lev)), "bfs_parents reached set"
+    kids = np.flatnonzero(pp)
+    kids = kids[kids != src]
+    assert pv[src] == src and (np.asarray(S[pv[kids], kids]).ravel()
+                               != 0).all(), "parent edges"
+    assert (lev[pv[kids]] == lev[kids] - 1).all(), "parent levels"
+    del P
+    part("bfs_parents")
+    # connected components (A as undirected): scipy's weak components,
+    # labelled by their least vertex
+    L, walls["connected_components_cold"], \
+        walls["connected_components_warm"] = two_walls(
+            lambda: gt.connected_components(A))
+    nc, lab = csg.connected_components(S, directed=True, connection="weak")
+    least = np.full(nc, n)
+    np.minimum.at(least, lab, np.arange(n))
+    assert np.array_equal(L.cpu().numpy(), least[lab]), "components"
+    part("components")
+    # sssp_grb against Dijkstra (integer weights: exact)
+    D, walls["sssp_grb_cold"], walls["sssp_grb_warm"] = two_walls(
+        lambda: gt.sssp_grb(A, src))
+    dv, dp = (t.cpu().numpy() for t in D.to_dense_1d())
+    ref = csg.dijkstra(W, indices=src)
+    assert np.array_equal(dp, np.isfinite(ref)) and \
+        np.array_equal(dv[dp], ref[dp]), "sssp_grb"
+    launches = kernel_launches()
+    part("sssp_grb")
+    # one warm ewise_add under the profiler: the device idle share
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_p = timed(lambda: gt.ewise_add(A, At, ops.PLUS))
+    busy = _busy_s([e for e in prof.events() if _on_device(e)])
+    assert 0 < busy <= wall_p, (busy, wall_p)
+    kern = sorted((e for e in prof.key_averages() if _on_device(e)
+                   and _dev_us(e) > 0), key=lambda e: -_dev_us(e))
+    top_k = ", ".join(f"{e.key[:40]} {_dev_us(e) / 1e3:.2f} ms x{e.count}"
+                      for e in kern[:5])
+    part("trace")
+    print(f"[14 ewise/pending/algorithms] {card} | graph (b) RMAT-20 n={n} "
+          f"nnz={W.nnz}, |A + A'|={u.size}, |A .* A'|={int(both.sum())}; "
+          f"every step exact vs scipy/numpy (fp32 integer weights 1..255, "
+          f"UINT64 w or 2^64 - w: PLUS wraps, MIN/LT/DIV across 2^63; "
+          f"dense path 2^24; "
+          f"100,000 sets + 20,000 removes; bfs_parents from {src}: "
+          f"{int(pp.sum())} reached, depth {int(lev[pp].max())}; "
+          f"{nc} components; sssp_grb = Dijkstra) | walls s: "
+          + " ".join(f"{k}={v:.3f}" for k, v in walls.items())
+          + f" | warm ewise_add traced: wall {wall_p:.4f} s, device busy "
+          f"{busy:.4f} s (idle {1 - busy / wall_p:.1%}); top kernels {top_k}"
+          f" | K1-K9 launches during the phase: {launches} | phase "
+          f"{time.perf_counter() - t_phase:.1f} s, by part (checks and host "
+          f"references included): " + " ".join(
+              f"{k}={v:.1f}" for k, v in parts.items()), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1218,9 +1506,7 @@ def main():
     from graphblas_tpu_torch.kernels import spmv_route as SPR
     from graphblas_tpu_torch.utils import native as NAT
     rng = np.random.default_rng(3)
-    OH.launches = 0
-    for k in SPR.launches:
-        SPR.launches[k] = 0
+    reset_kernel_launches()
     states = {label: main_path(label, S, rng) for label, S in graphs.items()}
     counts = {"K2": OH.launches, "K1": SPR.launches["spmv_route"],
               "K3": SPR.launches["spmv_route_monoid"],
@@ -1233,9 +1519,10 @@ def main():
              for label, st in states.items()}
     gather_wall(states[next(iter(states))], card)
     ta = times[next(iter(times))]
+    graph_b = graphs["b (RMAT-20 x16)"]      # phase 14's graph
     del states, times, graphs
     # 7. SpGEMM main path, sort-reduce launch counts
-    SRD.reset_launches()
+    reset_kernel_launches()
     for k in NAT.sweeps:
         NAT.sweeps[k] = 0
     with Recorder() as rec:
@@ -1270,6 +1557,8 @@ def main():
     del rec, big
     # 13. K9
     counts["K9"], ta["K9"] = phase_permute(card, errs)
+    # 14. eWise, pending events, unsigned arithmetic, the GrB algorithms
+    ewise_path(graph_b, card)
     # result lines
     print(card_line())
     print(json.dumps({"kernels": [

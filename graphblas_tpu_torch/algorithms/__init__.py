@@ -1,5 +1,7 @@
-from .graph import (bfs_levels, bfs_levels_fused, pagerank, pagerank_fused,
-                    sssp, triangle_count)
+from .graph import (bfs_levels, bfs_levels_fused, bfs_parents,
+                    connected_components, pagerank, pagerank_fused, sssp,
+                    sssp_grb, triangle_count)
 
-__all__ = ["bfs_levels", "bfs_levels_fused", "pagerank", "pagerank_fused",
-           "sssp", "triangle_count"]
+__all__ = ["bfs_levels", "bfs_levels_fused", "bfs_parents",
+           "connected_components", "pagerank", "pagerank_fused", "sssp",
+           "sssp_grb", "triangle_count"]

@@ -1,7 +1,8 @@
 """Graph algorithms on the op layer (counterpart of
 ``graphblas_tpu.algorithms.graph``; LAGraph-style drivers, BASELINE.json
 configs: BFS lor-land vxm, PageRank plus-times SpMV iteration, triangle
-counting by masked SpGEMM, SSSP min-plus relaxation).
+counting by masked SpGEMM, SSSP min-plus relaxation; BFS parents by a
+positional MIN_FIRSTJ vxm, connected components by FastSV).
 
 Two tiers per algorithm, as in the JAX package:
   * GrB tier — composed from the public ops (vxm/apply/reduce).
@@ -146,6 +147,30 @@ def bfs_levels_fused(A: Matrix, source: int, optimize=False) -> torch.Tensor:
         return _routed_bfs(A.nrows, int(source), plan)
     Ar = A.to_format(SPARSE, ROW)
     return _bfs_fused_plain(Ar.indptr, Ar.indices, int(source), A.nrows)
+
+
+def bfs_parents(A: Matrix, source: int) -> Vector:
+    """BFS parent tree via MIN_FIRSTJ vxm (the positional semiring of the
+    reference's GxB_MIN_FIRSTJ_INT64 BFS idiom): each step the frontier's
+    unvisited out-neighbours (a complemented structural mask with replace)
+    take the least frontier vertex as parent.  Returns an INT64 Vector,
+    parent[source] = source, absent where unreached."""
+    from .. import api
+    n = A.nrows
+    vals = torch.zeros((n, 1), dtype=torch.int64, device=A.device)
+    vals[source, 0] = source
+    present = torch.zeros((n, 1), dtype=torch.bool, device=A.device)
+    present[source, 0] = True
+    parents = Vector.from_dense_masked(vals, present)
+    frontier = Vector.from_dense_masked(vals, present)
+    d = Descriptor(mask_complement=True, mask_structure=True, replace=True)
+    while True:
+        frontier = api.vxm(frontier, A, SR.MIN_FIRSTJ, mask=parents,
+                           desc=d)
+        if frontier.nvals == 0:
+            return parents
+        parents = api.ewise_add(parents, frontier, OPS.SECOND,
+                                out_dtype=T.INT64)
 
 
 # ---------------------------------------------------------------------------
@@ -344,3 +369,51 @@ def sssp(A: Matrix, source: int, max_iter: int | None = None,
     rows = K.expand_rowids(Ar.indptr, int(Ar.indices.shape[0]), n)
     return _sssp_fused_plain(rows, Ar.indices, Ar._vals_expanded(),
                              int(source), n, max_iter or n)
+
+
+def sssp_grb(A: Matrix, source: int) -> Vector:
+    """GrB-tier SSSP: min-plus vxm relaxations through the public ops,
+    each folded in by ewise_add MIN, until ``isequal`` sees no change.
+    Returns an FP64 Vector, absent where unreached."""
+    from .. import api
+    n = A.nrows
+    present = torch.arange(n, device=A.device) == source
+    d = Vector.from_dense_masked(
+        torch.zeros(n, dtype=torch.float64, device=A.device), present)
+    while True:
+        relaxed = api.vxm(d, A, SR.MIN_PLUS, out_dtype=T.FP64)
+        nd = api.ewise_add(d, relaxed, OPS.MIN)
+        if nd.isequal(d):
+            return d
+        d = nd
+
+
+# ---------------------------------------------------------------------------
+# Connected components (FastSV)
+# ---------------------------------------------------------------------------
+
+def connected_components(A: Matrix) -> torch.Tensor:
+    """Connected components via FastSV (LAGraph; min-hooking with pointer
+    jumping), A taken as undirected: both directions of every edge.
+    Returns int32 labels, each the least vertex id of its component."""
+    Ar = A.to_format(SPARSE, ROW)
+    n = A.nrows
+    rows = K.expand_rowids(Ar.indptr, int(Ar.indices.shape[0]), n).long()
+    return _cc_fastsv(rows, Ar.indices.long(), n)
+
+
+def _cc_fastsv(rows, cols, n: int) -> torch.Tensor:
+    """The JAX package's ``_cc_fused`` loop, its test on the host once a
+    step: hook each edge's endpoints, their parents and themselves to the
+    smaller grandparent, then shortcut (f = f[f]), until f is unchanged."""
+    f = torch.arange(n, dtype=torch.int32, device=rows.device)
+    while True:
+        gf = f[f.long()]
+        cand = torch.minimum(gf[rows], gf[cols])
+        fn = f.clone()
+        for tgt in (f[rows].long(), f[cols].long(), rows, cols):
+            fn.scatter_reduce_(0, tgt, cand, "amin", include_self=True)
+        fn = fn[fn.long()]
+        if not bool((fn != f).any()):
+            return fn
+        f = fn

@@ -1,12 +1,15 @@
-"""Public operation API (counterpart of ``graphblas_tpu.api``, the subset
-the SpMV and SpGEMM paths need).  Every op returns the result; passing ``C=``
-updates C in place through accum/mask and returns it, like the C API."""
+"""Public operation API (counterpart of ``graphblas_tpu.api``: the eWise
+ops and the subset the SpMV and SpGEMM paths need).  Every op returns the
+result; passing ``C=`` updates C in place through accum/mask and returns
+it, like the C API.  Every op first applies the events still queued on
+its operands (``Matrix.wait``)."""
 
 from __future__ import annotations
 
 from .core.descriptor import NULL
 from .core.matrix import Matrix
 from .ops import apply as _apply_mod
+from .ops import ewise as _ewise
 from .ops import mxm as _mxm
 from .ops import reduce as _reduce
 from .ops import select as _select_mod
@@ -24,8 +27,38 @@ def _finish(C, out):
     return out
 
 
+def _wait(*objs) -> None:
+    for x in objs:
+        if isinstance(x, Matrix):
+            x.wait()
+
+
+def ewise_add(A, B, op, *, C=None, mask=None, accum=None, desc=NULL,
+              out_dtype=None):
+    _wait(A, B, C, mask)
+    return _finish(C, _ewise.ewise_add(A, B, op, C=C, mask=mask, accum=accum,
+                                       desc=desc, out_dtype=out_dtype))
+
+
+def ewise_mult(A, B, op, *, C=None, mask=None, accum=None, desc=NULL,
+               out_dtype=None):
+    _wait(A, B, C, mask)
+    return _finish(C, _ewise.ewise_mult(A, B, op, C=C, mask=mask,
+                                        accum=accum, desc=desc,
+                                        out_dtype=out_dtype))
+
+
+def ewise_union(A, alpha, B, beta, op, *, C=None, mask=None, accum=None,
+                desc=NULL, out_dtype=None):
+    _wait(A, B, C, mask)
+    return _finish(C, _ewise.ewise_union(A, alpha, B, beta, op, C=C,
+                                         mask=mask, accum=accum, desc=desc,
+                                         out_dtype=out_dtype))
+
+
 def apply(A, op, *, bind=None, thunk=None, C=None, mask=None, accum=None,
           desc=NULL, out_dtype=None):
+    _wait(A, C, mask)
     return _finish(C, _apply_mod.apply(A, op, bind=bind, thunk=thunk, C=C,
                                        mask=mask, accum=accum, desc=desc,
                                        out_dtype=out_dtype))
@@ -34,6 +67,7 @@ def apply(A, op, *, bind=None, thunk=None, C=None, mask=None, accum=None,
 def select(A, op, thunk=0, *, C=None, mask=None, accum=None, desc=NULL,
            out_dtype=None):
     """GrB_select: entries of A where ``op(a_ij, i, j, thunk)`` holds."""
+    _wait(A, C, mask)
     return _finish(C, _select_mod.select(A, op, thunk, C=C, mask=mask,
                                          accum=accum, desc=desc,
                                          out_dtype=out_dtype))
@@ -42,6 +76,7 @@ def select(A, op, thunk=0, *, C=None, mask=None, accum=None, desc=NULL,
 def reduce(A, mon, *, C=None, mask=None, accum=None, desc=NULL,
            out_dtype=None):
     """Matrix -> Vector rowwise reduce (GrB_Matrix_reduce_Monoid)."""
+    _wait(A, C, mask)
     return _finish(C, _reduce.reduce_to_vector(A, mon, C=C, mask=mask,
                                                accum=accum, desc=desc,
                                                out_dtype=out_dtype))
@@ -49,12 +84,14 @@ def reduce(A, mon, *, C=None, mask=None, accum=None, desc=NULL,
 
 def reduce_scalar(A, mon, *, accum=None, init=None, out_dtype=None):
     """Matrix/Vector -> scalar reduce (GrB_Matrix_reduce_TYPE)."""
+    _wait(A)
     return _reduce.reduce_to_scalar(A, mon, accum=accum, init=init,
                                     out_dtype=out_dtype)
 
 
 def transpose(A, *, C=None, mask=None, accum=None, desc=NULL,
               out_dtype=None):
+    _wait(A, C, mask)
     return _finish(C, _transpose_mod.transpose(A, C=C, mask=mask,
                                                accum=accum, desc=desc,
                                                out_dtype=out_dtype))
@@ -62,24 +99,28 @@ def transpose(A, *, C=None, mask=None, accum=None, desc=NULL,
 
 def mxm(A, B, semiring, *, C=None, mask=None, accum=None, desc=NULL,
         out_dtype=None):
+    _wait(A, B, C, mask)
     return _finish(C, _mxm.mxm(A, B, semiring, C=C, mask=mask, accum=accum,
                                desc=desc, out_dtype=out_dtype))
 
 
 def mxv(A, u, semiring, *, C=None, mask=None, accum=None, desc=NULL,
         out_dtype=None):
+    _wait(A, u, C, mask)
     return _finish(C, _mxm.mxv(A, u, semiring, C=C, mask=mask, accum=accum,
                                desc=desc, out_dtype=out_dtype))
 
 
 def vxm(u, A, semiring, *, C=None, mask=None, accum=None, desc=NULL,
         out_dtype=None):
+    _wait(u, A, C, mask)
     return _finish(C, _mxm.vxm(u, A, semiring, C=C, mask=mask, accum=accum,
                                desc=desc, out_dtype=out_dtype))
 
 
 def vxm_chain(u, A, semiring, steps):
     """K-step vxm pipeline (see ops/mxm.vxm_chain)."""
+    _wait(u, A)
     return _mxm.vxm_chain(u, A, semiring, steps)
 
 
@@ -87,4 +128,5 @@ def mxm_reduce_scalar(A, B, semiring, *, mask=None, desc=NULL):
     """Fused reduce(C<M> = A (+).(x) B) under PLUS (see
     ops/mxm.mxm_reduce_scalar): an int64 device scalar, or None when the
     fused path does not apply."""
+    _wait(A, B, mask)
     return _mxm.mxm_reduce_scalar(A, B, semiring, mask=mask, desc=desc)

@@ -13,9 +13,12 @@ import torch
 
 from . import config as CFG
 from . import errors as E
+from . import types as T
 from .matrix import BITMAP, COL, FULL, HYPER, INDEX, SPARSE, Matrix
 
-_FIELDS = tuple(f.name for f in dataclasses.fields(Matrix))
+# every field but the pending queue, of which a copy gets its own list
+_FIELDS = tuple(f.name for f in dataclasses.fields(Matrix)
+                if f.name != "_pending")
 
 
 def _clone(a: Matrix, **kw) -> Matrix:
@@ -23,6 +26,7 @@ def _clone(a: Matrix, **kw) -> Matrix:
     obj = object.__new__(type(a))
     for f in _FIELDS:
         setattr(obj, f, getattr(a, f))
+    obj._pending = list(a._pending)
     obj._nvals_cache = None
     for k, v in kw.items():
         setattr(obj, k, v)
@@ -37,6 +41,7 @@ def _reclass(a: Matrix, klass) -> Matrix:
     obj = object.__new__(klass)
     for f in _FIELDS:
         setattr(obj, f, getattr(a, f))
+    obj._pending = list(a._pending)
     return obj
 
 
@@ -122,7 +127,7 @@ def _dense_to_sparse(a: Matrix, orient: str) -> Matrix:
         present_o, vals_o = present, vals
         nvec, veclen = a.nrows, a.ncols
     pos = torch.nonzero(present_o.reshape(-1)).reshape(-1)
-    kept_vals = vals_o.reshape(-1)[pos]
+    kept_vals = T.take(vals_o.reshape(-1), pos)
     vec_ids = (pos // veclen).to(INDEX)
     idx = (pos % veclen).to(INDEX)
     indptr = K.indptr_from_sorted(vec_ids, nvec, INDEX)
@@ -143,7 +148,7 @@ def _sparse_reorient(a: Matrix, orient: str) -> Matrix:
     # orders them by (new vec = idx, new idx = old vec)
     sidx, order = torch.sort(a.indices, stable=True)
     indptr = K.indptr_from_sorted(sidx, new_nvec, INDEX)
-    vals = a.values if a.iso else a._vals_expanded()[order]
+    vals = a.values if a.iso else T.take(a._vals_expanded(), order)
     return _clone(a, orient=orient, indptr=indptr,
                   indices=vecid[order].to(INDEX), values=vals)
 

@@ -14,8 +14,15 @@ raise where there is none — see ``config.default_device``).  Ops run on
 their operands' device.
 bitmap/full store values in the logical (nrows, ncols) layout.
 
-Pending tuples and ``wait()`` (non-blocking mode) come with a later part
-of the port.
+Non-blocking mode (reference: GB_matrix.h:313-390, GB_wait.c):
+``set_element``/``remove_element`` queue host-side events in ``_pending``
+(numpy (rows, cols, value, dup) tuples, bounds checked when queued);
+``wait()`` applies them, the last event per entry winning, and rebinds
+the matrix to new tensors (caches keyed on the old ones stay valid).
+Every public entry point waits first: the ``api`` ops, ``nvals``,
+``to_format``, ``coo``, ``to_dense_pair``, ``dup``, ``_replace_from``,
+``optimize`` and element access.  In blocking mode (``init("blocking")``)
+every event is applied as it is queued.
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ class Matrix:
     sparsity_control: Optional[str] = None
     hyper_switch: Optional[float] = None
     bitmap_switch: Optional[float] = None
+    _pending: list = dataclasses.field(default_factory=list)
 
     def __post_init__(self):
         self.orient = self.orient or CFG.GLOBAL.format_default
@@ -123,6 +131,7 @@ class Matrix:
     def nvals(self) -> int:
         """Number of stored entries (GrB_Matrix_nvals); one host sync for
         the bitmap format."""
+        self.wait()
         if self.fmt in (SPARSE, HYPER):
             return int(self.indices.shape[0])
         if self.fmt == FULL:
@@ -207,14 +216,16 @@ class Matrix:
         """GrB_Matrix_dup.  Tensors are never written in place, so sharing
         them is safe."""
         from .convert import _clone
-        return _clone(self)
+        return _clone(self.wait())
 
     def _replace_from(self, other: "Matrix") -> None:
         """In-place adoption of another matrix's contents (reference:
-        GB_transplant_conform)."""
+        GB_transplant_conform); this matrix's own queued events go."""
+        other.wait()
         for s in ("shape", "fmt", "orient", "iso", "dtype", "indptr", "h",
                   "indices", "values", "bitmap", "_nvals_cache", "device"):
             setattr(self, s, getattr(other, s))
+        self._pending = []
 
     # -- values access -----------------------------------------------------
 
@@ -232,19 +243,20 @@ class Matrix:
     def to_dense_pair(self, fill=None):
         """(values[nrows, ncols], present[nrows, ncols]); absent entries
         hold ``fill`` (default 0)."""
+        self.wait()
         ty = self.dtype
         fillv = T.scalar(0 if fill is None else fill, ty, self.device)
         if self.fmt == FULL:
             return self._vals_expanded(), torch.ones(
                 self.shape, dtype=torch.bool, device=self.device)
         if self.fmt == BITMAP:
-            return (torch.where(self.bitmap, self._vals_expanded(), fillv),
+            return (T.where(self.bitmap, self._vals_expanded(), fillv),
                     self.bitmap)
         a = self.to_format(SPARSE) if self.fmt == HYPER else self
         rows, cols = a._coords()
         rows, cols = rows.long(), cols.long()
         dense = fillv.expand(self.shape).clone()
-        dense[rows, cols] = a._vals_expanded()
+        T.bits(dense)[rows, cols] = T.bits(a._vals_expanded())
         present = torch.zeros(self.shape, dtype=torch.bool,
                               device=self.device)
         present[rows, cols] = True
@@ -266,6 +278,7 @@ class Matrix:
 
     def coo(self):
         """(rows, cols, values) tensors — GrB_Matrix_extractTuples."""
+        self.wait()
         a = self.to_format(SPARSE) if self.fmt != SPARSE else self
         r, c = a._coords()
         return r, c, a._vals_expanded()
@@ -273,6 +286,7 @@ class Matrix:
     # -- format conversion (reference: Source/GB_convert_*.c) --------------
 
     def to_format(self, fmt, orient=None) -> "Matrix":
+        self.wait()
         orient = orient or self.orient
         if fmt == self.fmt and orient == self.orient:
             return self
@@ -293,6 +307,71 @@ class Matrix:
         from .. import api
         from . import ops as OPS
         return api.apply(self, OPS.IDENTITY, out_dtype=dtype)
+
+    def isequal(self, other, rtol=0.0, atol=0.0) -> bool:
+        """Same shape, same pattern, same values (within tolerance)."""
+        if self.shape != other.shape:
+            return False
+        av, ap = self.to_dense_pair()
+        bv, bp = other.to_dense_pair()
+        if bool((ap != bp).any()):
+            return False
+        if av.dtype != bv.dtype:
+            ty = T.upcast_pair(self.dtype, other.dtype)
+            av, bv = T.cast(av, ty), T.cast(bv, ty)
+        if rtol == 0.0 and atol == 0.0:
+            return not bool((ap & (T.carry(av) != T.carry(bv))).any())
+        wide = T.FC64 if av.is_complex() else T.FP64
+        av, bv = T.cast(av, wide), T.cast(bv, wide)
+        close = (av - bv).abs() <= atol + rtol * bv.abs()
+        return bool((close | ~ap).all())
+
+    # -- pending-tuple machinery (non-blocking mode) -----------------------
+
+    def _add_pending(self, rows, cols, vals, dup):
+        if isinstance(vals, torch.Tensor):
+            vals = vals.cpu().numpy()
+        self._pending.append((np.atleast_1d(np.asarray(rows)),
+                              np.atleast_1d(np.asarray(cols)), vals, dup))
+        self._nvals_cache = None
+        if CFG.GLOBAL.blocking:
+            self.wait()
+
+    def wait(self) -> "Matrix":
+        """GrB_Matrix_wait: apply the queued events (reference:
+        Source/GB_wait.c; see ops/build.apply_pending)."""
+        if not self._pending:
+            return self
+        pend, self._pending = self._pending, []
+        from ..ops import build as _build
+        _build.apply_pending(self, pend)
+        return self
+
+    # -- element access (reference: Source/GB_setElement.c, GB_Element.h) --
+
+    def _check_index(self, i, j):
+        # bounds-checked when the event is queued, as the reference's
+        # GrB_*_setElement does, not at wait()
+        if not (0 <= int(i) < self.nrows and 0 <= int(j) < self.ncols):
+            raise E.IndexOutOfBounds(
+                f"({i},{j}) outside {self.nrows}x{self.ncols}")
+
+    def set_element(self, i, j, value):
+        self._check_index(i, j)
+        self._add_pending(i, j, value, "second")
+
+    def remove_element(self, i, j):
+        self._check_index(i, j)
+        self._add_pending(i, j, None, "delete")
+
+    def extract_element(self, i, j):
+        """GrB_Matrix_extractElement: raises NoValue if absent."""
+        from ..ops import element
+        return element.extract_element(self.wait(), i, j)
+
+    def is_stored_element(self, i, j) -> bool:
+        from ..ops import element
+        return element.is_stored(self.wait(), i, j)
 
     # -- per-object get/set (reference: GrB_get/GrB_set over matrices) -----
 
@@ -332,6 +411,7 @@ class Matrix:
         """Validity check: indptr monotone & terminal, indices in range
         and strictly sorted within vectors, bitmap/values shapes
         consistent."""
+        self.wait()
         if self.fmt in (SPARSE, HYPER):
             p = self.indptr.long()
             nnz = int(self.indices.shape[0])
@@ -370,7 +450,7 @@ class Matrix:
         matrix, else the freshly built plan is saved there."""
         from ..kernels import spmv_route
         from .convert import _clone
-        Ar = self.to_format(SPARSE, ROW)
+        Ar = self.wait().to_format(SPARSE, ROW)
         if Ar.dtype != T.FP32 or Ar.iso:
             Ar = Ar.astype(T.FP32)
             if Ar.iso:
@@ -398,7 +478,8 @@ class Matrix:
         return Ar
 
     def __repr__(self):
-        nv = "?" if self.fmt == BITMAP and self._nvals_cache is None \
+        nv = "?" if self._pending or (self.fmt == BITMAP
+                                      and self._nvals_cache is None) \
             else self.nvals
         return (f"{type(self).__name__}({self.shape[0]}x{self.shape[1]} "
                 f"{self.dtype.name} {self.fmt}/{self.orient}"
@@ -468,6 +549,21 @@ class Vector(Matrix):
     def to_dense_1d(self, fill=None):
         v, p = self.to_dense_pair(fill)
         return v[:, 0], p[:, 0]
+
+    def set_element(self, i, value, _v=None):
+        if _v is not None:            # matrix-style (i, j, value)
+            super().set_element(i, value, _v)
+        else:
+            super().set_element(i, 0, value)
+
+    def remove_element(self, i, j=None):
+        super().remove_element(i, 0 if j is None else j)
+
+    def extract_element(self, i, j=None):
+        return super().extract_element(i, 0 if j is None else j)
+
+    def is_stored_element(self, i, j=None) -> bool:
+        return super().is_stored_element(i, 0 if j is None else j)
 
 
 @dataclasses.dataclass(eq=False, repr=False, init=False)

@@ -3,8 +3,11 @@ terminal) — counterpart of ``graphblas_tpu.core.monoid`` (reference:
 Source/Shared/GB_opaque.h:411-426, built-ins in Source/GB_ops.c:584-660).
 
 Identity and terminal depend on the dtype (MIN's identity is +inf for
-floats, INT_MAX for ints), so they are functions of a numpy dtype here;
-``identity_tensor`` makes the 0-d device tensor a kernel needs.
+floats, INT_MAX for ints, 2^64 - 1 for UINT64), so they are functions of a
+numpy dtype here, typed numpy scalars (a bare Python int would not say
+UINT64); ``identity_tensor`` makes the 0-d device tensor a kernel needs
+(an unsigned one is carried as ``types.carry`` says: UINT64's 2^64 - 1 is
+-1 in its int64 carrier).
 """
 
 from __future__ import annotations
@@ -56,6 +59,9 @@ class Monoid:
     identity: Callable[[np.dtype], np.generic]  # dtype -> scalar
     terminal: Optional[Callable[[np.dtype], np.generic]] = None
     name: str = ""
+    # declared domain of a NAMED monoid (e.g. GxB_MIN_UINT64_MONOID, see
+    # core/names.py); None => dtype-polymorphic
+    declared_type: object = None
 
     def __post_init__(self):
         if not self.name:
@@ -73,6 +79,9 @@ class Monoid:
 
     def identity_tensor(self, ty: T.Type, device) -> torch.Tensor:
         return T.scalar(self.identity_for(ty.np_dtype), ty, device)
+
+    def __repr__(self):
+        return f"Monoid({self.name})"
 
 
 def monoid(op: BinaryOp, identity, terminal=None, name="") -> Monoid:

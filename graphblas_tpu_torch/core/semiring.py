@@ -4,7 +4,7 @@ Source/Shared/GB_opaque.h:428-442).
 
 Operators are dtype-polymorphic callables, so every (monoid, binop) pair
 exists through ``semiring()``; the workhorse semirings get module-level
-names.  The 1553 predefined names (``core/names.py``) come later.
+names; ``core/names.py`` resolves the 1553 predefined typed names.
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ class Semiring:
     add: Monoid
     mult: BinaryOp
     name: str = ""
+    # declared type of a NAMED semiring (the T of GxB_add_mult_T: the type
+    # of x, y and the monoid; core/names.py); None => dtype-polymorphic
+    declared_type: object = None
 
     def __post_init__(self):
         if not self.name:

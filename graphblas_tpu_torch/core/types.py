@@ -7,9 +7,14 @@ both its numpy dtype (host side, plans, interop) and its torch dtype
 (device side).  Casting follows the reference: float->integer rounds to
 nearest (nearbyint) with NaN -> 0 and clamping, anything->bool is x != 0.
 
-UINT16/UINT32/UINT64 are declared, but torch on the CPU has no add or min
-for them; arithmetic on those types raises ``NotImplementedError`` (see
-``core/ops.py``) until a wider carrier lands.
+UINT16/UINT32/UINT64 values are stored in torch's unsigned dtypes (so a
+tensor names its type), but torch computes almost nothing on them: no
+add, compare or scatter on the CPU, and on the card not even a gather,
+``where`` or sort (``tools/probe_unsigned.py``).  Every op computes
+through a signed carrier (``carry``/``uncarry``): UINT16 in int32 and
+UINT32 in int64, wrapped with a mask; UINT64 as its int64 bit pattern,
+ordered by ``order_key`` (the sign bit flipped).  Data moves through the
+same-width signed view (``bits``/``unbits``, ``take``, ``where``).
 """
 
 from __future__ import annotations
@@ -74,8 +79,14 @@ FC64 = Type("GxB_FC64", np.dtype(np.complex128), torch.complex128)
 ALL_TYPES = [BOOL, INT8, INT16, INT32, INT64, UINT8, UINT16, UINT32, UINT64,
              FP32, FP64, FC32, FC64]
 
-# torch dtypes whose arithmetic torch does not implement on the CPU
-UNSIGNED_WIDE = (torch.uint16, torch.uint32, torch.uint64)
+# the carriers of the unsigned dtypes torch cannot compute on, and their
+# same-width signed views
+_CARRIER = {torch.uint16: torch.int32, torch.uint32: torch.int64,
+            torch.uint64: torch.int64}
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+           torch.uint64: torch.int64}
+_MASK = {torch.uint16: 0xFFFF, torch.uint32: 0xFFFFFFFF}
+TOP = -(1 << 63)          # the int64 sign bit
 
 _BY_NP = {t.np_dtype: t for t in ALL_TYPES}
 _BY_TORCH = {t.torch_dtype: t for t in ALL_TYPES}
@@ -106,6 +117,58 @@ def lookup(x) -> Type:
         raise KeyError(f"no GraphBLAS type for dtype {dt!r}") from None
 
 
+def wide_unsigned(dt) -> bool:
+    """True for uint16/uint32/uint64 (a torch dtype or a Type)."""
+    return (dt.torch_dtype if isinstance(dt, Type) else dt) in _CARRIER
+
+
+def carry(x: torch.Tensor) -> torch.Tensor:
+    """The carrier of an unsigned tensor (UINT16 -> int32, UINT32 -> int64
+    by value, UINT64 -> its int64 bit pattern); other tensors as they
+    are."""
+    if x.dtype == torch.uint64:
+        return x.view(torch.int64)
+    if x.dtype in _CARRIER:
+        return bits(x).to(_CARRIER[x.dtype]) & _MASK[x.dtype]
+    return x
+
+
+def uncarry(c: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Carrier -> unsigned ``dt``, wrapping modulo 2^w."""
+    if dt == torch.uint64:
+        return c.to(torch.int64).view(torch.uint64)
+    return c.to(_SIGNED[dt]).view(dt)
+
+
+def order_key(c: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """A signed tensor that orders like the unsigned values carried in
+    ``c`` (carriers of UINT16/UINT32 already do)."""
+    return c ^ TOP if dt == torch.uint64 else c
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    """The same-width signed view of an unsigned tensor (for moving data:
+    gather, scatter, sort, where); other tensors as they are."""
+    return x.view(_SIGNED[x.dtype]) if x.dtype in _SIGNED else x
+
+
+def unbits(b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    return b.view(dt) if dt in _SIGNED else b
+
+
+def take(x: torch.Tensor, idx) -> torch.Tensor:
+    """``x[idx]`` for any dtype."""
+    return unbits(bits(x)[idx], x.dtype)
+
+
+def where(cond: torch.Tensor, a: torch.Tensor, b) -> torch.Tensor:
+    """``torch.where`` for any dtype (``b`` may be a 0-d tensor of a's
+    dtype)."""
+    if a.dtype not in _SIGNED:
+        return torch.where(cond, a, b)
+    return unbits(torch.where(cond, bits(a), bits(b)), a.dtype)
+
+
 def scalar(value, ty: Type, device) -> torch.Tensor:
     """A 0-d tensor of type ``ty`` on ``device`` (explicit dtype: torch's
     default float is float32, the JAX package's is float64)."""
@@ -119,22 +182,55 @@ def cast(value: torch.Tensor, to) -> torch.Tensor:
     plan caches on tensor identity)."""
     to = lookup(to)
     src = value
-    if src.dtype == to.torch_dtype:
+    dt = to.torch_dtype
+    if src.dtype == dt:
         return src
     if to.is_bool:
-        return src != 0
+        return bits(src) != 0
+    if src.dtype == torch.uint64 and not to.is_integer:
+        return _u64_to_float(src.view(torch.int64)).to(dt)
+    src = carry(src)
     if to.is_integer and (src.is_floating_point() or src.is_complex()):
-        real = src.real if src.is_complex() else src
-        info = np.iinfo(to.np_dtype)
-        # nearbyint + clamp to the target range, NaN -> 0 (reference
-        # GB_casting.h GB_cast_to_int*)
-        r = torch.round(real)
-        r = torch.where(torch.isnan(real), torch.zeros_like(r), r)
-        r = torch.clamp(r, float(info.min), float(info.max))
-        return r.to(to.torch_dtype)
+        return _float_to_int(src.real if src.is_complex() else src, to)
+    if dt in _CARRIER:              # integer or bool -> unsigned: wraps
+        return uncarry(src.to(torch.int64), dt)
     if not to.is_complex and src.is_complex():
-        return src.real.to(to.torch_dtype)
-    return src.to(to.torch_dtype)
+        return src.real.to(dt)
+    return src.to(dt)
+
+
+def _u64_to_float(c: torch.Tensor) -> torch.Tensor:
+    """float64 of the unsigned values whose bit patterns ``c`` holds, one
+    rounding: (high 32 bits) * 2^32 exactly, plus the low 32 bits."""
+    hi = ((c >> 32) & 0xFFFFFFFF).to(torch.float64)
+    return hi * 4294967296.0 + (c & 0xFFFFFFFF).to(torch.float64)
+
+
+def _float_to_int(x: torch.Tensor, to: Type) -> torch.Tensor:
+    """nearbyint, NaN -> 0, saturating at the target's range (reference
+    GB_casting.h GB_cast_to_int*).  In float64, where the bounds of
+    32-bit targets are exact; INT64_MAX and UINT64_MAX are not (they
+    round up to 2^63 and 2^64), so 64-bit targets saturate by compare."""
+    x = x.to(torch.float64)
+    r = torch.where(torch.isnan(x), torch.zeros_like(x), torch.round(x))
+    info = np.iinfo(to.np_dtype)
+    if info.bits <= 32:
+        r = torch.clamp(r, float(info.min), float(info.max))
+        if to.torch_dtype in _CARRIER:
+            return uncarry(r.to(torch.int64), to.torch_dtype)
+        return r.to(to.torch_dtype)
+    if to.is_signed:
+        hi, lo = r >= 2.0 ** 63, r <= -2.0 ** 63
+        c = torch.where(hi | lo, torch.zeros_like(r), r).to(torch.int64)
+        c = torch.where(hi, torch.full_like(c, info.max), c)
+        return torch.where(lo, torch.full_like(c, info.min), c)
+    # UINT64: above 2^63, r is a multiple of 2^11, so r - 2^63 is exact
+    r = torch.clamp(r, min=0.0)
+    hi, big = r >= 2.0 ** 64, r >= 2.0 ** 63
+    low = torch.where(big, r - 2.0 ** 63, r)
+    c = torch.where(hi, torch.zeros_like(r), low).to(torch.int64)
+    c = torch.where(big, c ^ TOP, c)
+    return torch.where(hi, torch.full_like(c, -1), c).view(torch.uint64)
 
 
 def upcast_pair(a: Type, b: Type) -> Type:

@@ -2,8 +2,11 @@
 
 ``matrix_from_arrays`` rebuilds a port ``Matrix`` from the arrays of a
 ``graphblas_tpu`` Matrix, handed over as numpy arrays (nothing here takes
-a JAX object).  The tests build every port operand this way from the JAX
-operand, so both packages see the same storage.
+a JAX object), values of every type (unsigned and complex included) and
+its pending queue: a list of numpy (rows, cols, value, dup) tuples, dup
+"second" for set_element and "delete" (value None) for remove_element.
+The tests build every port operand this way from the JAX operand, so both
+packages see the same storage and the same queued events.
 
 JAX route plans (``spmv_route.save_plan``) are a TPU layout;
 ``kernels.spmv_route.load_plan`` refuses them.
@@ -29,27 +32,38 @@ def _t(a, device, dtype=None):
     return torch.from_numpy(arr.copy()).to(device)
 
 
+def _pending(queue):
+    return [(np.array(r, np.int64).reshape(-1),
+             np.array(c, np.int64).reshape(-1),
+             None if v is None else np.array(v), dup)
+            for r, c, v, dup in queue or ()]
+
+
 def matrix_from_arrays(shape, dtype_name, fmt, orient, indptr, h, indices,
-                       values, bitmap, iso, device=None) -> Matrix:
+                       values, bitmap, iso, device=None,
+                       pending=None) -> Matrix:
     """A port Matrix from a JAX Matrix's fields: ``dtype_name`` is its
-    ``dtype.name`` (e.g. "GrB_FP32"), index arrays become int32.
-    ``device`` defaults to ``config.default_device()``."""
+    ``dtype.name`` (e.g. "GrB_FP32"), index arrays become int32,
+    ``pending`` its queue of events (copied).  ``device`` defaults to
+    ``config.default_device()``."""
     ty = T.lookup(dtype_name)
     device = CFG.default_device(device)
-    return Matrix(tuple(shape), ty, fmt, orient, iso=bool(iso),
-                  indptr=_t(indptr, device, np.int32),
-                  h=_t(h, device, np.int32),
-                  indices=_t(indices, device, np.int32),
-                  values=_t(values, device, ty.np_dtype),
-                  bitmap=_t(bitmap, device, np.bool_),
-                  device=device)
+    M = Matrix(tuple(shape), ty, fmt, orient, iso=bool(iso),
+               indptr=_t(indptr, device, np.int32),
+               h=_t(h, device, np.int32),
+               indices=_t(indices, device, np.int32),
+               values=_t(values, device, ty.np_dtype),
+               bitmap=_t(bitmap, device, np.bool_),
+               device=device)
+    M._pending = _pending(pending)
+    return M
 
 
 def vector_from_arrays(n, dtype_name, fmt, indptr, h, indices, values,
-                       bitmap, iso, device=None) -> Vector:
+                       bitmap, iso, device=None, pending=None) -> Vector:
     """A port Vector from a JAX Vector's fields (an n-by-1 matrix stored
     by column)."""
     return _reclass(matrix_from_arrays((n, 1), dtype_name, fmt, "col",
                                        indptr, h, indices, values, bitmap,
-                                       iso, device), Vector)
+                                       iso, device, pending), Vector)
 

@@ -65,13 +65,6 @@ def key_split(keys, veclen: int):
 # segmented reduction
 # ---------------------------------------------------------------------------
 
-def _check_arith(vals: torch.Tensor) -> None:
-    if vals.dtype in T.UNSIGNED_WIDE:
-        raise NotImplementedError(
-            f"arithmetic on {vals.dtype} is not supported yet "
-            "(torch has no kernels for it; see ROADMAP)")
-
-
 def _expand_index(seg: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     if vals.dim() == 1:
         return seg
@@ -97,21 +90,21 @@ def segment_reduce(vals: torch.Tensor, seg_ids: torch.Tensor,
         return ident.expand((num_segments,) + tail).clone()
     seg = seg_ids.long()
     name = monoid.op.name
+    if T.wide_unsigned(ty):
+        return _segment_reduce_unsigned(vals, seg, num_segments, monoid,
+                                        ident, indices_are_sorted)
     if ty.is_bool and name in ("GrB_PLUS", "GrB_MAX"):
         # boolean arithmetic collapses: plus == max == lor on bool
         name = "GrB_LOR"
     elif ty.is_bool and name in ("GrB_TIMES", "GrB_MIN"):
         name = "GrB_LAND"
     if name == "GrB_PLUS":
-        _check_arith(vals)
         out = torch.zeros((num_segments,) + tail, dtype=vals.dtype,
                           device=vals.device)
         return out.index_add_(0, seg, vals)
     if name == "GrB_TIMES":
-        _check_arith(vals)
         return _scatter(vals, seg, num_segments, 1, "prod")
     if name in ("GrB_MIN", "GrB_MAX"):
-        _check_arith(vals)
         if vals.is_floating_point():
             # scatter amin/amax propagate NaN; GraphBLAS MIN/MAX are
             # omitnan — substitute the identity for NaN inputs first
@@ -138,13 +131,19 @@ def segment_reduce(vals: torch.Tensor, seg_ids: torch.Tensor,
                         torch.finfo(vals.dtype).min if vals.is_floating_point()
                         else torch.iinfo(vals.dtype).min, "amax")
     # ---- generic path: segmented inclusive scan (Hillis-Steele) ----------
+    return _segment_scan(vals, seg, num_segments, monoid.op.fn, ident,
+                         indices_are_sorted)
+
+
+def _segment_scan(vals, seg, num_segments, op, ident, indices_are_sorted):
+    """Any associative ``op`` by a segmented inclusive scan; the last
+    element of each segment holds its total."""
     if not indices_are_sorted:
         order = torch.argsort(seg, stable=True)
         seg, vals = seg[order], vals[order]
     n = vals.shape[0]
     flags = torch.ones(n, dtype=torch.bool, device=vals.device)
     flags[1:] = seg[1:] != seg[:-1]
-    op = monoid.op.fn
     v, f = vals, flags
     k = 1
     while k < n:
@@ -157,9 +156,37 @@ def segment_reduce(vals: torch.Tensor, seg_ids: torch.Tensor,
         k *= 2
     is_last = torch.ones(n, dtype=torch.bool, device=vals.device)
     is_last[:-1] = seg[1:] != seg[:-1]
-    out = ident.expand((num_segments,) + tail).clone()
+    out = ident.expand((num_segments,) + tuple(vals.shape[1:])).clone()
     out[seg[is_last]] = v[is_last]
     return out
+
+
+def _segment_reduce_unsigned(vals, seg, num_segments, monoid, ident,
+                             indices_are_sorted):
+    """segment_reduce on UINT16/32/64 through the carriers: PLUS and TIMES
+    wrap there, MIN/MAX/ANY reduce the order keys, the boolean monoids
+    read x != 0, any other monoid scans the signed views."""
+    dt = vals.dtype
+    ty = T.lookup(dt)
+    name = monoid.op.name
+    c = T.carry(vals)
+    if name in ("GrB_PLUS", "GrB_TIMES"):
+        return T.uncarry(segment_reduce(c, seg, num_segments, monoid), dt)
+    if name in ("GrB_MIN", "GrB_MAX", "GxB_ANY"):
+        k = T.order_key(c, dt)
+        init = int(T.order_key(T.carry(ident), dt))
+        out = _scatter(k, seg, num_segments, init,
+                       "amin" if name == "GrB_MIN" else "amax")
+        return T.uncarry(T.order_key(out, dt), dt)
+    if name in ("GrB_LOR", "GrB_LAND", "GrB_LXOR"):
+        r = segment_reduce(T.bits(vals) != 0, seg, num_segments, monoid)
+        return T.cast(r, ty)
+    op = monoid.op.fn
+    out = _segment_scan(
+        T.bits(vals), seg, num_segments,
+        lambda a, b: T.bits(op(T.unbits(a, dt), T.unbits(b, dt))),
+        T.bits(ident), indices_are_sorted)
+    return T.unbits(out, dt)
 
 
 def full_reduce(vals: torch.Tensor, monoid: Monoid, dtype=None
@@ -172,27 +199,29 @@ def full_reduce(vals: torch.Tensor, monoid: Monoid, dtype=None
     if vals.shape[0] == 0:
         return ident
     name = monoid.op.name
+    if T.wide_unsigned(ty) and name in ("GrB_PLUS", "GrB_TIMES", "GrB_MIN",
+                                        "GrB_MAX", "GxB_ANY"):
+        seg = torch.zeros(vals.shape[0], dtype=torch.int64,
+                          device=vals.device)
+        return segment_reduce(vals, seg, 1, monoid)[0]
     if ty.is_bool and name in ("GrB_PLUS", "GrB_MAX"):
         name = "GrB_LOR"
     elif ty.is_bool and name in ("GrB_TIMES", "GrB_MIN"):
         name = "GrB_LAND"
     if name == "GrB_PLUS":
-        _check_arith(vals)
         return vals.sum(dtype=ty.torch_dtype)
     if name == "GrB_TIMES":
-        _check_arith(vals)
         return vals.prod(dtype=ty.torch_dtype)
     if name in ("GrB_MIN", "GrB_MAX"):
-        _check_arith(vals)
         if vals.is_floating_point():
             vals = torch.where(torch.isnan(vals), ident, vals)
         return vals.amin() if name == "GrB_MIN" else vals.amax()
     if name == "GrB_LOR":
-        return (vals != 0).any().to(ty.torch_dtype)
+        return T.cast((T.bits(vals) != 0).any(), ty)
     if name == "GrB_LAND":
-        return (vals != 0).all().to(ty.torch_dtype)
+        return T.cast((T.bits(vals) != 0).all(), ty)
     if name == "GrB_LXOR":
-        return ((vals != 0).sum() % 2).to(ty.torch_dtype)
+        return T.cast((T.bits(vals) != 0).sum() % 2 != 0, ty)
     if name == "GxB_ANY":
         return vals.amax()
     seg = torch.zeros(vals.shape[0], dtype=torch.int64, device=vals.device)
@@ -237,7 +266,7 @@ def compact(mask, *arrays):
     """Keep elements where mask; returns (count, kept arrays).  The
     zombie-free deletion path (reference: GB_selector in GB_wait.c)."""
     idx = torch.nonzero(mask).reshape(-1)
-    return int(idx.shape[0]), tuple(a[idx] for a in arrays)
+    return int(idx.shape[0]), tuple(T.take(a, idx) for a in arrays)
 
 
 def lookup_sorted(sorted_keys, queries):
@@ -253,3 +282,52 @@ def lookup_sorted(sorted_keys, queries):
     safe = torch.clamp(pos, max=n - 1)
     found = (pos < n) & (sorted_keys[safe] == queries)
     return found, safe
+
+
+# ---------------------------------------------------------------------------
+# union merge — the engine behind eWiseAdd / eWiseMult / eWiseUnion, the
+# masker and wait()
+# ---------------------------------------------------------------------------
+
+def _side_vals(vals, src, present):
+    """``vals[src]`` where ``present``, 0 elsewhere: any dtype, trailing
+    field dims too, and the bits of what is present as they were (NaN
+    payloads and -0.0 survive)."""
+    ng = src.shape[0]
+    if vals.shape[0] == 0:
+        return torch.zeros((ng,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                           device=vals.device)
+    v = T.bits(T.take(vals, torch.where(present, src, 0)))
+    keep = present.reshape((ng,) + (1,) * (v.dim() - 1))
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    return T.unbits(torch.where(keep, v, zero), vals.dtype)
+
+
+def union_merge(keysA, valsA, keysB, valsB):
+    """Merge two sorted sparse patterns (each side duplicate-free).
+    Returns (unique_keys, a_vals, b_vals, a_present, b_present) of length
+    nnz(union), absent values 0: one engine for eWiseAdd (union),
+    eWiseMult (both present), eWiseUnion (union with fill scalars), the
+    masker truth table and wait() (reference: Source/GB_add.h, GB_emult.h,
+    GB_masker.c:20-27).
+
+    One stable sort of both key lists puts A's member of a key first, and
+    a key has at most two members: presence comes from neighbour
+    compares, the group starts are compacted, and each side's payload is
+    gathered from the source row the sort's order names."""
+    dev = keysA.device
+    nA = keysA.shape[0]
+    skeys, order = torch.sort(torch.cat([keysA.to(KEY), keysB.to(KEY)]),
+                              stable=True)
+    n = skeys.shape[0]
+    is_new = torch.ones(n, dtype=torch.bool, device=dev)
+    is_new[1:] = skeys[1:] != skeys[:-1]
+    pair = torch.zeros(n, dtype=torch.bool, device=dev)
+    pair[:-1] = ~is_new[1:]
+    _, (ukeys, first, second, pair) = compact(
+        is_new, skeys, order, torch.roll(order, -1), pair)
+    a_in = first < nA
+    b_in = ~a_in | pair
+    src_b = torch.where(a_in, second, first) - nA
+    return (ukeys, _side_vals(valsA, first, a_in),
+            _side_vals(valsB, src_b, b_in), a_in, b_in)

@@ -88,9 +88,8 @@ def _apply_unary(A, op, zt):
         return _apply_positional(A, op, zt)
     if A.fmt in (BITMAP, FULL):
         v, p = A.to_dense_pair()
-        zv = torch.where(p, cast(op.fn(v), zt),
-                         torch.zeros((), dtype=zt.torch_dtype,
-                                     device=A.device))
+        zv = T.where(p, cast(op.fn(v), zt),
+                     torch.zeros((), dtype=zt.torch_dtype, device=A.device))
         return Matrix(A.shape, zt, A.fmt, A.orient, values=zv,
                       bitmap=p if A.fmt == BITMAP else None)
     # sparse/hyper: map the (possibly iso) values tensor directly
@@ -117,9 +116,8 @@ def _apply_idx(A, op, thunk, zt):
     if A.fmt in (BITMAP, FULL):
         ii, jj = _coords_dense(A)
         v, p = A.to_dense_pair()
-        zv = torch.where(p, cast(op.fn(v, ii, jj, th), zt),
-                         torch.zeros((), dtype=zt.torch_dtype,
-                                     device=A.device))
+        zv = T.where(p, cast(op.fn(v, ii, jj, th), zt),
+                     torch.zeros((), dtype=zt.torch_dtype, device=A.device))
         return Matrix(A.shape, zt, A.fmt, A.orient, values=zv,
                       bitmap=p if A.fmt == BITMAP else None)
     S = A.to_format(SPARSE) if A.fmt == HYPER else A

@@ -6,8 +6,8 @@ Two paths cover every case:
 
   * dense path — any operand bitmap/full: ``torch.where`` algebra, bitmap
     output.
-  * sparse path — all operands sparse/hyper: one union of the sorted key
-    sets of C and T, a mask lookup, and a compaction.
+  * sparse path — all operands sparse/hyper: one union merge of C and T
+    (``segment.union_merge``), a mask lookup, and a compaction.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def mask_bits_dense(mask: Matrix | None, shape, desc: Descriptor, device):
         m = torch.ones(shape, dtype=torch.bool, device=device)
         return ~m if desc.mask_complement else m
     mv, mp = mask.to_dense_pair()
-    m = mp if desc.mask_structure else (mp & (mv != 0))
+    m = mp if desc.mask_structure else (mp & (T.bits(mv) != 0))
     return ~m if desc.mask_complement else m
 
 
@@ -46,14 +46,15 @@ def mask_bits_at_keys(mask: Matrix, keys, veclen: int, orient: str,
         idx = (keys % veclen).long()
         i, j = (vec, idx) if orient == ROW else (idx, vec)
         mv, mp = mask.to_dense_pair()
-        m = mp[i, j] if desc.mask_structure else (mp[i, j] & (mv[i, j] != 0))
+        m = mp[i, j] if desc.mask_structure else \
+            (mp[i, j] & (T.bits(mv)[i, j] != 0))
     else:
         mk, mvals = _keys_of(mask.to_orient(orient))
         found, pos = K.lookup_sorted(mk, keys)
         if desc.mask_structure or mvals.shape[0] == 0:
             m = found
         else:
-            m = found & (mvals[pos] != 0)
+            m = found & (T.bits(mvals)[pos] != 0)
     return ~m if desc.mask_complement else m
 
 
@@ -106,24 +107,15 @@ def _writeback_dense(C, mask, accum, Tm, desc, dt):
         zv, zp = tv, tp
     else:
         acc = cast(accum.fn(cv, tv), dt)
-        zv = torch.where(cp & tp, acc, torch.where(tp, tv, cv))
+        zv = T.where(cp & tp, acc, T.where(tp, tv, cv))
         zp = cp | tp
     m = mask_bits_dense(mask, C.shape, desc, C.device)
-    rv = torch.where(m, zv, cv)
+    rv = T.where(m, zv, cv)
     rp = (zp & m) if desc.replace else torch.where(m, zp, cp)
-    rv = torch.where(rp, rv, torch.zeros((), dtype=dt.torch_dtype,
-                                         device=C.device))
+    rv = T.where(rp, rv, torch.zeros((), dtype=dt.torch_dtype,
+                                     device=C.device))
     return Matrix((C.nrows, C.ncols), dt, BITMAP, C.orient, values=rv,
                   bitmap=rp)
-
-
-def _union(ck, tk):
-    """Union of two sorted, duplicate-free key arrays: (ukeys, position
-    of each C key, position of each T key) in ukeys."""
-    ukeys, inv = torch.unique(torch.cat([ck, tk]), sorted=True,
-                              return_inverse=True)
-    nc = ck.shape[0]
-    return ukeys, inv[:nc], inv[nc:]
 
 
 def _writeback_sparse(C, mask, accum, Tm, desc, dt):
@@ -133,23 +125,16 @@ def _writeback_sparse(C, mask, accum, Tm, desc, dt):
     Cs = C.to_format(SPARSE) if C.fmt == HYPER else C
     ck, cvals = _keys_of(Cs)
     tk, tvals = _keys_of(Tm)
-    ukeys, pc, pt = _union(ck, tk)
+    ukeys, ucv, utv, c_in, t_in = K.union_merge(
+        ck, cast(cvals, dt), tk, cast(tvals, dt))
     nu = ukeys.shape[0]
     dev = C.device
-    c_in = torch.zeros(nu, dtype=torch.bool, device=dev)
-    t_in = torch.zeros(nu, dtype=torch.bool, device=dev)
-    c_in[pc] = True
-    t_in[pt] = True
-    ucv = torch.zeros(nu, dtype=dt.torch_dtype, device=dev)
-    utv = torch.zeros(nu, dtype=dt.torch_dtype, device=dev)
-    ucv[pc] = cast(cvals, dt)
-    utv[pt] = cast(tvals, dt)
     if accum is None:
-        zv = torch.where(t_in, utv, ucv)
+        zv = T.where(t_in, utv, ucv)
         z_in = t_in
     else:
-        zv = torch.where(c_in & t_in, cast(accum.fn(ucv, utv), dt),
-                         torch.where(t_in, utv, ucv))
+        zv = T.where(c_in & t_in, cast(accum.fn(ucv, utv), dt),
+                     T.where(t_in, utv, ucv))
         z_in = c_in | t_in
     if mask is None:
         m = torch.full((nu,), not desc.mask_complement, dtype=torch.bool,
@@ -157,7 +142,7 @@ def _writeback_sparse(C, mask, accum, Tm, desc, dt):
     else:
         m = mask_bits_at_keys(mask, ukeys, C._veclen(), orient, desc)
     keep = (z_in & m) if desc.replace else (z_in & m) | (c_in & ~m)
-    rvals = torch.where(m, zv, ucv)
+    rvals = T.where(m, zv, ucv)
     _, (fk, fv) = K.compact(keep, ukeys, rvals)
     uvec, uidx = K.key_split(fk, C._veclen())
     indptr = K.indptr_from_sorted(uvec, C._nvec_dim(), INDEX)

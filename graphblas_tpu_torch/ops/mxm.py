@@ -65,6 +65,12 @@ def _dense(a):
 def _ztype(sr: Semiring, A, B, out_dtype=None):
     if out_dtype is not None:
         return T.lookup(out_dtype)
+    # typed named semirings compute and output in their declared domain
+    # (comparator semirings still output the mult's bool ztype; typed
+    # positional ones the declared INT32/INT64)
+    dt = sr.declared_type
+    if dt is not None:
+        return dt if sr.mult.positional else (sr.mult.ztype or dt)
     return sr.mult.out_type(A.dtype, B.dtype)
 
 
@@ -82,7 +88,8 @@ def _ident_relabel(i, k, j):
 
 
 def _flip(sr: Semiring) -> Semiring:
-    return Semiring(sr.add, sr.mult.flipped(), name=sr.name + "_flip")
+    return Semiring(sr.add, sr.mult.flipped(), name=sr.name + "_flip",
+                    declared_type=sr.declared_type)
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +195,8 @@ def _spmspv_scatter(u, A, sr, zt):
     add monoid.  Returns a BITMAP Vector, or None when the monoid/type
     cannot ride a scatter."""
     add_name = sr.add.op.name
-    if add_name not in _SPMSPV_ADDS or zt.is_complex:
+    if add_name not in _SPMSPV_ADDS or zt.is_complex or \
+            T.wide_unsigned(zt):
         return None
     m = A.ncols
     dev = A.device
@@ -208,7 +216,8 @@ def _spmspv_scatter(u, A, sr, zt):
     j = A.indices.long()[pos]
     logical = zt.is_bool
     kt = T.INT32 if logical else zt
-    prod = cast(sr.mult.fn(uv[e], A._vals_expanded()[pos]), kt)
+    prod = cast(sr.mult.fn(T.take(uv, e), T.take(A._vals_expanded(), pos)),
+                kt)
     pres = torch.zeros(m, dtype=torch.bool, device=dev)
     pres[j] = True
     if add_name == "GrB_PLUS":
@@ -250,7 +259,7 @@ def _rowscale(D: Matrix, B: Matrix, sr, zt, relabel) -> Matrix:
     Br = B.to_format(SPARSE, ROW)
     nnz = int(Br.indices.shape[0])
     rows = K.expand_rowids(Br.indptr, nnz, B.nrows).long()
-    vals = cast(sr.mult.fn(d[rows], Br._vals_expanded()), zt)
+    vals = cast(sr.mult.fn(T.take(d, rows), Br._vals_expanded()), zt)
     return _clone(Br, dtype=zt, values=vals, iso=False)
 
 
@@ -260,7 +269,8 @@ def _colscale(A: Matrix, D: Matrix, sr, zt, relabel) -> Matrix:
         return None
     d = D._vals_expanded()
     Ar = A.to_format(SPARSE, ROW)
-    vals = cast(sr.mult.fn(Ar._vals_expanded(), d[Ar.indices.long()]), zt)
+    vals = cast(sr.mult.fn(Ar._vals_expanded(),
+                           T.take(d, Ar.indices.long())), zt)
     return _clone(Ar, dtype=zt, values=vals, iso=False)
 
 
@@ -341,14 +351,14 @@ def _mxm_dense(A, B, sr, zt, relabel=_ident_relabel) -> Matrix:
         else:
             prod = cast(sr.mult.fn(av[:, k0:k1, None], bv[None, k0:k1, :]),
                         zt)
-        prod = torch.where(both, prod, ident)
+        prod = T.where(both, prod, ident)
         red = _reduce_axis1(prod, sr.add, zt)
         anyp = both.any(dim=1)
-        acc = torch.where(anyp & pres, cast(sr.add.op.fn(acc, red), zt),
-                          torch.where(anyp, red, acc))
+        acc = T.where(anyp & pres, cast(sr.add.op.fn(acc, red), zt),
+                      T.where(anyp, red, acc))
         pres = pres | anyp
-    acc = torch.where(pres, acc, torch.zeros((), dtype=zt.torch_dtype,
-                                             device=dev))
+    acc = T.where(pres, acc, torch.zeros((), dtype=zt.torch_dtype,
+                                         device=dev))
     return Matrix((m, n), zt, BITMAP, A.orient, values=acc, bitmap=pres)
 
 
@@ -423,7 +433,7 @@ def _spmm(A: Matrix, B: Matrix, sr, zt, relabel=_ident_relabel) -> Matrix:
     bv, bp = B.to_dense_pair()
     rows = K.expand_rowids(Ar.indptr, nnz, m)
     cols = Ar.indices.long()
-    brow = bv[cols, :]                     # [nnz, n] gather of B rows
+    brow = T.take(bv, cols)                # [nnz, n] gather of B rows
     bpres = bp[cols, :]
     if sr.mult.positional:
         ii = rows.long()[:, None].expand(nnz, n)
@@ -433,13 +443,13 @@ def _spmm(A: Matrix, B: Matrix, sr, zt, relabel=_ident_relabel) -> Matrix:
         prod = _positional_product_vals(sr.mult.positional, ri, rk, rj, zt)
     else:
         prod = cast(sr.mult.fn(Ar._vals_expanded()[:, None], brow), zt)
-    prod = torch.where(bpres, prod, sr.add.identity_tensor(zt, dev))
+    prod = T.where(bpres, prod, sr.add.identity_tensor(zt, dev))
     out = K.segment_reduce(prod, rows, m, sr.add, indices_are_sorted=True)
     pres = torch.zeros((m, n), dtype=torch.int32, device=dev)
     pres.index_add_(0, rows.long(), bpres.to(torch.int32))
     pres = pres > 0
     return Matrix((m, n), zt, BITMAP, ROW,
-                  values=torch.where(pres, out, zero), bitmap=pres)
+                  values=T.where(pres, out, zero), bitmap=pres)
 
 
 def _narrow_spmm_route(bv, plan) -> torch.Tensor:
@@ -676,7 +686,7 @@ def _spgemm_block(keys, prod, mask, desc, sr, n: int):
         CFG.burble("spgemm: mask prefilter -> %d products", kept)
     skeys, order = torch.sort(keys)
     gid, ng = K.group_ids(skeys)
-    cv = K.segment_reduce(prod[order], gid, ng, sr.add)
+    cv = K.segment_reduce(T.take(prod, order), gid, ng, sr.add)
     ukeys = torch.zeros(ng, dtype=skeys.dtype, device=skeys.device)
     ukeys[gid] = skeys
     uvec, uidx = K.key_split(ukeys, n)
@@ -708,6 +718,6 @@ def _spgemm_expand_at(Ar, Br, a_rows, cumf, p, sr, zt, n: int,
         ri, rk, rj = relabel(i, ka, j)
         prod = _positional_product_vals(mult.positional, ri, rk, rj, zt)
     else:
-        prod = cast(mult.fn(Ar._vals_expanded()[e],
-                            Br._vals_expanded()[b_pos]), zt)
+        prod = cast(mult.fn(T.take(Ar._vals_expanded(), e),
+                            T.take(Br._vals_expanded(), b_pos)), zt)
     return keys, prod

@@ -31,7 +31,8 @@ def reduce_to_vector(A: Matrix, mon: Monoid, *, C=None, mask=None,
         m, n = A.shape
         rows = torch.arange(m, device=A.device).repeat_interleave(n)
         keep = p.reshape(-1)
-        out = K.segment_reduce(v.reshape(-1)[keep], rows[keep], m, mon)
+        out = K.segment_reduce(T.take(v.reshape(-1), keep), rows[keep], m,
+                               mon)
         present = p.any(dim=1)
     else:
         S = A.to_format(SPARSE) if A.fmt == HYPER else A
@@ -40,7 +41,7 @@ def reduce_to_vector(A: Matrix, mon: Monoid, *, C=None, mask=None,
                                indices_are_sorted=S.orient == ROW)
         present = torch.zeros(A.nrows, dtype=torch.bool, device=A.device)
         present[rows.long()] = True
-    Tm = Vector.from_dense_masked(torch.where(present, out, zero), present)
+    Tm = Vector.from_dense_masked(T.where(present, out, zero), present)
     return writeback(C, mask, accum, Tm, desc, out_dtype, out_class=Vector)
 
 
@@ -52,7 +53,7 @@ def reduce_to_scalar(A: Matrix, mon: Monoid, *, accum=None, init=None,
     CFG.burble("reduce_to_scalar %s (%s)", mon.name, A.fmt)
     if A.fmt in (BITMAP, FULL):
         v, p = A.to_dense_pair()
-        vals = cast(v, dt)[p]
+        vals = T.take(cast(v, dt), p)
     else:
         vals = cast(A._vals_expanded(), dt)
     r = K.full_reduce(vals, mon, dt)

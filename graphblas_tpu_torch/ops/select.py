@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..core import config as CFG
+from ..core import types as T
 from ..core.descriptor import NULL, Descriptor
 from ..core.matrix import BITMAP, FULL, HYPER, INDEX, SPARSE, Matrix
 from ..core.ops import IndexUnaryOp
@@ -18,15 +19,19 @@ from .transpose import maybe_transpose
 def select(A: Matrix, op: IndexUnaryOp, thunk=0, *, C=None, mask=None,
            accum=None, desc: Descriptor = NULL, out_dtype=None):
     A = maybe_transpose(A, desc.transpose0)
-    thunk = torch.as_tensor(thunk, device=A.device)
+    # a value thunk against an unsigned A takes A's type (torch has no
+    # promotion rule for the unsigned dtypes)
+    thunk = T.scalar(thunk, A.dtype, A.device) if op.value_only and \
+        T.wide_unsigned(A.dtype) and not isinstance(thunk, torch.Tensor) \
+        else torch.as_tensor(thunk, device=A.device)
     CFG.burble("select %s (%s)", op.name, A.fmt)
     if A.fmt in (BITMAP, FULL):
         v, p = A.to_dense_pair()
         ii = torch.arange(A.nrows, device=A.device)[:, None].expand(A.shape)
         jj = torch.arange(A.ncols, device=A.device)[None, :].expand(A.shape)
         keep = (op.fn(v, ii, jj, thunk) != 0) & p
-        zv = torch.where(keep, v, torch.zeros((), dtype=v.dtype,
-                                              device=A.device))
+        zv = T.where(keep, v, torch.zeros((), dtype=v.dtype,
+                                          device=A.device))
         Tm = Matrix(A.shape, A.dtype, BITMAP, A.orient, values=zv,
                     bitmap=keep)
     else:
@@ -40,7 +45,7 @@ def select(A: Matrix, op: IndexUnaryOp, thunk=0, *, C=None, mask=None,
         counts = K.histogram_sorted(vecid, nvec, weights=keep)
         indptr = torch.zeros(nvec + 1, dtype=torch.int64, device=A.device)
         torch.cumsum(counts, 0, out=indptr[1:])
-        vals = S._vals_expanded()[keep]
+        vals = T.take(S._vals_expanded(), keep)
         Tm = Matrix(A.shape, A.dtype, SPARSE, S.orient,
                     indptr=indptr.to(INDEX), indices=S.indices[keep],
                     values=vals.contiguous())

@@ -1,8 +1,9 @@
 """Inputs and comparisons for holding the sort-reduce kernels (K5-K8,
 kernels/sortreduce.py) against their plain versions, operands for the
 fast SpGEMM tier's full-row edge case, misaligned copies of the SpMV
-kernels' operands, and the RMAT graph generator of the benchmarks.  Used
-by chip_smoke.py and the tests, among them tests/test_torch_cuda.py;
+kernels' operands, the RMAT graph generator of the benchmarks, and
+pending set/remove events with their host reference.  Used by
+chip_smoke.py and the tests, among them tests/test_torch_cuda.py;
 nothing here launches a kernel."""
 
 from __future__ import annotations
@@ -36,6 +37,65 @@ def rmat_edges(scale, edge_factor, rng, a=0.57, b=0.19, c=0.19):
         cols |= (right | both).astype(np.int64) << lvl
     perm = rng.permutation(n)
     return perm[rows], perm[cols], n
+
+
+def _coords(rng, shape, k):
+    return np.stack([rng.integers(0, shape[0], k),
+                     rng.integers(0, shape[1], k)], 1)
+
+
+def _pick(rng, stored, k):
+    return stored[rng.integers(0, len(stored), k)] if len(stored) \
+        else np.zeros((0, 2), np.int64)
+
+
+def pending_events(rng, shape, n_set, n_remove, stored):
+    """A list of ("set", i, j, value) and ("remove", i, j, None) events:
+    ``n_set`` sets, half on the ``stored`` coordinates (an (k, 2) array)
+    and half anywhere, a fifth of them repeating an earlier set's entry;
+    then ``n_remove`` removes, a third on entries set before, a third on
+    stored entries, a third anywhere.  Values are integers 1..255 (exact
+    in every type the tests use)."""
+    pick = _pick(rng, stored, n_set // 2)
+    ij = np.concatenate([pick, _coords(rng, shape, n_set - len(pick))])
+    rng.shuffle(ij)
+    rep = np.flatnonzero(rng.random(n_set) < 0.2)
+    rep = rep[rep > 0]
+    ij[rep] = ij[rng.integers(0, rep)]       # an earlier set's entry
+    events = [("set", int(i), int(j), int(v))
+              for (i, j), v in zip(ij, rng.integers(1, 256, n_set))]
+    k = n_remove // 3
+    rm = np.concatenate([ij[rng.integers(0, n_set, k)],
+                         _pick(rng, stored, k),
+                         _coords(rng, shape, n_remove - 2 * k)])
+    rng.shuffle(rm)
+    return events + [("remove", int(i), int(j), None) for i, j in rm]
+
+
+def apply_events(rows, cols, vals, events, shape):
+    """Host reference of wait(): ``events`` applied in order to the
+    entries (rows, cols, vals), given in row-major order without repeats;
+    returns the result's (rows, cols, vals) in row-major order.  The last
+    event of each entry decides: a set stores its value, a remove
+    deletes.  Binary searches and inserts only: no sort of the entries."""
+    n = shape[1]
+    last = {}
+    for op, i, j, v in events:
+        last[i * n + j] = v if op == "set" else None
+    keys = np.asarray(rows, np.int64) * n + np.asarray(cols, np.int64)
+    vals = np.asarray(vals)
+    ek = np.sort(np.fromiter(last, np.int64, len(last)))
+    pos = np.searchsorted(keys, ek)
+    hit = pos < keys.size
+    hit[hit] = keys[pos[hit]] == ek[hit]
+    keep = np.ones(keys.size, bool)
+    keep[pos[hit]] = False
+    setk = np.array([k for k in ek if last[k] is not None], np.int64)
+    setv = np.array([last[k] for k in setk], vals.dtype)
+    keys, vals = keys[keep], vals[keep]
+    at = np.searchsorted(keys, setk)
+    keys, vals = np.insert(keys, at, setk), np.insert(vals, at, setv)
+    return keys // n, keys % n, vals
 
 
 def shifted(t, by):

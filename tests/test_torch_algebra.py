@@ -35,13 +35,176 @@ def test_type_table_matches(name):
         (jt.is_float, jt.is_integer, jt.is_bool, jt.is_complex)
 
 
-@pytest.mark.parametrize("ty", [TT.UINT16, TT.UINT32, TT.UINT64])
-def test_unsigned_arithmetic_not_implemented(ty):
-    x = torch.tensor([1, 2], dtype=ty.torch_dtype)
-    with pytest.raises(NotImplementedError):
-        TO.PLUS(x, x)
-    with pytest.raises(NotImplementedError):
-        TK.segment_reduce(x, torch.tensor([0, 0]), 1, TM.MIN)
+UNSIGNED = [TT.UINT16, TT.UINT32, TT.UINT64]
+
+
+def _unsigned_pair(rng, ty):
+    """Random values of ``ty`` over its whole range, with 0, 1, the top
+    bit set, the maximum, and (UINT64) values either side of 2^63."""
+    dt = ty.np_dtype
+    top = np.iinfo(dt).max
+    a = rng.integers(0, top, 256, dtype=dt, endpoint=True)
+    b = rng.integers(0, top, 256, dtype=dt, endpoint=True)
+    half = dt.type(1) << dt.type(8 * dt.itemsize - 1)
+    a[:8] = [0, 1, top, half, half + dt.type(1), top, 7, half - dt.type(1)]
+    b[:8] = [0, 0, 1, top, half, half - dt.type(1), 0, half + dt.type(3)]
+    b[8::9] = 0
+    b[9::11] = rng.integers(1, 4, b[9::11].size, dtype=dt)
+    return a, b
+
+
+def _jax_op(name, *arrs):
+    return np.asarray(getattr(JO, name).fn(*map(jnp.asarray, arrs)))
+
+
+def _port_op(name, *arrs):
+    return getattr(TO, name).fn(*map(torch.from_numpy, arrs)).numpy()
+
+
+@pytest.mark.parametrize("ty", UNSIGNED, ids=lambda t: t.name)
+def test_unsigned_arithmetic_wraps(ty):
+    """+ - x and AINV wrap at 2^w through the carriers: equal to numpy's
+    wrapping arithmetic and to the JAX package, bitwise."""
+    a, b = _unsigned_pair(np.random.default_rng(40), ty)
+    with np.errstate(over="ignore"):
+        want = {"PLUS": a + b, "MINUS": a - b, "RMINUS": b - a,
+                "TIMES": a * b}
+    for name, w in want.items():
+        got = _port_op(name, a, b)
+        assert got.dtype == ty.np_dtype
+        np.testing.assert_array_equal(got, w)
+        np.testing.assert_array_equal(got, _jax_op(name, a, b))
+    np.testing.assert_array_equal(_port_op("AINV", a), _jax_op("AINV", a))
+    e = (b % 60).astype(ty.np_dtype)
+    np.testing.assert_array_equal(_port_op("POW", a, e),
+                                  _jax_op("POW", a, e))
+
+
+@pytest.mark.parametrize("ty", UNSIGNED, ids=lambda t: t.name)
+def test_unsigned_order(ty):
+    """MIN/MAX and the comparators order values with the top bit set
+    (UINT64 above 2^63) after the others."""
+    a, b = _unsigned_pair(np.random.default_rng(41), ty)
+    for name, w in (("MIN", np.minimum(a, b)), ("MAX", np.maximum(a, b)),
+                    ("LT", a < b), ("GE", a >= b), ("GT", a > b),
+                    ("LE", a <= b), ("ISLT", (a < b).astype(a.dtype)),
+                    ("EQ", a == b)):
+        got = _port_op(name, a, b)
+        np.testing.assert_array_equal(got, w)
+        np.testing.assert_array_equal(got, _jax_op(name, a, b))
+
+
+@pytest.mark.parametrize("ty", UNSIGNED, ids=lambda t: t.name)
+def test_unsigned_division(ty):
+    """Unsigned division, divisors with the top bit set included; x / 0 is
+    UINT_MAX and 0 / 0 is 0 (GB_idiv), as in the JAX package."""
+    a, b = _unsigned_pair(np.random.default_rng(42), ty)
+    top = int(np.iinfo(ty.np_dtype).max)
+    want = np.array([0 if y == 0 and x == 0 else top if y == 0
+                     else x // y for x, y in zip(a.tolist(), b.tolist())],
+                    ty.np_dtype)
+    for name, x, y in (("DIV", a, b), ("RDIV", b, a)):
+        got = _port_op(name, x, y)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, _jax_op(name, x, y))
+    np.testing.assert_array_equal(_port_op("MINV", b), _jax_op("MINV", b))
+
+
+@pytest.mark.parametrize("ty", UNSIGNED, ids=lambda t: t.name)
+def test_unsigned_bitwise_and_sort_order(ty):
+    """Bitwise ops and BNOT through the signed views; order_key sorts the
+    carriers in unsigned order."""
+    a, b = _unsigned_pair(np.random.default_rng(43), ty)
+    for name in ("BOR", "BAND", "BXOR", "BXNOR"):
+        np.testing.assert_array_equal(_port_op(name, a, b),
+                                      _jax_op(name, a, b))
+    np.testing.assert_array_equal(_port_op("BNOT", a), _jax_op("BNOT", a))
+    s = (b % 40).astype(np.int64) - 20
+    np.testing.assert_array_equal(_port_op("BSHIFT", a, s),
+                                  _jax_op("BSHIFT", a, s))
+    c = TT.carry(torch.from_numpy(a))
+    k, _ = torch.sort(TT.order_key(c, c.dtype if ty is not TT.UINT64
+                                   else torch.uint64))
+    got = TT.uncarry(TT.order_key(k, torch.uint64 if ty is TT.UINT64
+                                  else k.dtype), ty.torch_dtype)
+    np.testing.assert_array_equal(got.numpy(), np.sort(a))
+
+
+def _bitwise_segments(a, seg, n, mon):
+    """numpy reference of BOR / BXNOR per segment (identity 0 / all
+    bits): a k-term BXNOR is the XOR of the terms, negated for even k."""
+    dt = a.dtype
+    out = np.full(n, 0 if mon == "BOR" else np.iinfo(dt).max, dt)
+    for g in np.unique(seg):
+        v = a[seg == g]
+        if mon == "BOR":
+            out[g] = np.bitwise_or.reduce(v)
+        else:
+            x = np.bitwise_xor.reduce(v)
+            out[g] = x if v.size % 2 else ~x
+    return out
+
+
+@pytest.mark.parametrize("ty", UNSIGNED, ids=lambda t: t.name)
+@pytest.mark.parametrize("mon", ["PLUS", "TIMES", "MIN", "MAX", "ANY",
+                                 "LOR", "LXOR", "BOR", "BXNOR"])
+def test_unsigned_reductions(ty, mon):
+    """segment_reduce and full_reduce on the unsigned types equal the JAX
+    package's (whose full PLUS/TIMES promote to 64 bits: compared after
+    the cast back to the type); BOR and BXNOR (the generic scan) equal a
+    numpy reduction."""
+    rng = np.random.default_rng(44)
+    a, _ = _unsigned_pair(rng, ty)
+    seg = np.sort(rng.integers(0, 40, a.size)).astype(np.int32)
+    tm = getattr(TM, mon)
+    got = TK.segment_reduce(torch.from_numpy(a), torch.from_numpy(seg), 45,
+                            tm).numpy()
+    full = TK.full_reduce(torch.from_numpy(a), tm).numpy()
+    assert got.dtype == full.dtype == ty.np_dtype
+    if mon in ("BOR", "BXNOR"):
+        np.testing.assert_array_equal(got, _bitwise_segments(a, seg, 45,
+                                                             mon))
+        np.testing.assert_array_equal(
+            full, _bitwise_segments(a, np.zeros_like(seg), 1, mon)[0])
+        return
+    jm = getattr(JM, mon)
+    np.testing.assert_array_equal(
+        got, np.asarray(JK.segment_reduce(jnp.asarray(a), jnp.asarray(seg),
+                                          45, jm)))
+    np.testing.assert_array_equal(
+        full,
+        np.asarray(JK.full_reduce(jnp.asarray(a), jm)).astype(ty.np_dtype))
+
+
+def test_cast_clamp_bound():
+    """float -> INT64 / UINT64 saturates at the type's exact maximum, the
+    reference's GB_cast_to_int64_t / uint64_t (GB_casting.h): 2^63 and
+    2^64 are not representable, so a clamp to float(max) would overflow.
+    UINT64 -> float rounds values above 2^63 once.  Reference values, not
+    the JAX package's."""
+    x = torch.tensor([2.0 ** 63, 1e30, -1e30, 2.0 ** 64, 1.8e19, 9.3e18,
+                      -2.0 ** 63, 2.5, float("nan")], dtype=torch.float64)
+    i64 = np.iinfo(np.int64)
+    np.testing.assert_array_equal(
+        TT.cast(x, TT.INT64).numpy(),
+        [i64.max, i64.max, i64.min, i64.max, i64.max, i64.max,
+         i64.min, 2, 0])
+    np.testing.assert_array_equal(
+        TT.cast(x, TT.UINT64).numpy(),
+        np.array([2 ** 63, 2 ** 64 - 1, 0, 2 ** 64 - 1, 18 * 10 ** 18,
+                  93 * 10 ** 17, 0, 2, 0], np.uint64))
+    f32 = torch.tensor([3e9, -3e9, 5e9], dtype=torch.float32)
+    np.testing.assert_array_equal(TT.cast(f32, TT.INT32).numpy(),
+                                  [2 ** 31 - 1, -2 ** 31, 2 ** 31 - 1])
+    np.testing.assert_array_equal(TT.cast(f32, TT.UINT32).numpy(),
+                                  np.array([3 * 10 ** 9, 0, 2 ** 32 - 1],
+                                           np.uint32))
+    u = np.array([2 ** 64 - 1, 2 ** 63, 12345678901234567891, 3],
+                 np.uint64)
+    np.testing.assert_array_equal(
+        TT.cast(torch.from_numpy(u), TT.FP64).numpy(), u.astype(np.float64))
+    np.testing.assert_array_equal(
+        TT.cast(torch.from_numpy(u), TT.INT64).numpy(), u.view(np.int64))
 
 
 def _np_pair(rng, kind):
@@ -195,7 +358,13 @@ def test_import_brings_no_jax():
             "graphblas_tpu_torch.utils.native, "
             "graphblas_tpu_torch.utils.tensor_cache, "
             "graphblas_tpu_torch.testing, "
-            "graphblas_tpu_torch.tools.probe_sortreduce; "
+            "graphblas_tpu_torch.tools.probe_sortreduce, "
+            "graphblas_tpu_torch.tools.probe_unsigned, "
+            "graphblas_tpu_torch.core.names, "
+            "graphblas_tpu_torch.core.context, "
+            "graphblas_tpu_torch.core.iterator, "
+            "graphblas_tpu_torch.ops.ewise, "
+            "graphblas_tpu_torch.ops.element; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'graphblas_tpu')); "

@@ -111,3 +111,74 @@ def test_entry_step_matches_graft_entry():
     y2j = np.asarray(fj(jnp.asarray(yj), *aj[1:]))
     y2t = ft(yt, *at[1:]).numpy()
     np.testing.assert_allclose(y2t, y2j, rtol=1e-6)
+
+
+def _components_graph(seed, weights=False):
+    """Three blocks of the random graph with no edge between them, plus
+    isolated vertices: several weak components."""
+    S = _graph(seed, weights=weights)
+    rng = np.random.default_rng(seed)
+    keep = (S.tocoo().row // 150) == (S.tocoo().col // 150)
+    C = S.tocoo()
+    S = sps.csr_matrix((C.data[keep], (C.row[keep], C.col[keep])),
+                       shape=S.shape)
+    S.data[:] = rng.integers(1, 21, S.nnz) if weights else 1.0
+    return S
+
+
+GRAPHS = {"random": lambda w: _graph(6, weights=w),
+          "components": lambda w: _components_graph(7, weights=w)}
+
+
+@pytest.mark.parametrize("g", list(GRAPHS))
+def test_bfs_parents_matches(xla_path, g):
+    """MIN_FIRSTJ parents: exact against JAX; each parent is an
+    in-neighbour one level up (scipy's levels)."""
+    S = GRAPHS[g](False)
+    Aj, At = pair(S)
+    pj = jalg.graph.bfs_parents(Aj, 3)
+    pt = talg.bfs_parents(At, 3)
+    assert pt.dtype.name == "GrB_INT64"
+    vj, qj = (np.asarray(a) for a in pj.to_dense_1d())
+    vt, qt = (a.numpy() for a in pt.to_dense_1d())
+    np.testing.assert_array_equal(qt, qj)
+    np.testing.assert_array_equal(vt[qt], vj[qj])
+    lv = csg.shortest_path(S, unweighted=True, indices=3)
+    np.testing.assert_array_equal(qt, np.isfinite(lv))
+    kids = np.flatnonzero(qt & (np.arange(N) != 3))
+    assert (lv[vt[kids]] == lv[kids] - 1).all()
+    assert all(S[p, k] for p, k in zip(vt[kids], kids))
+
+
+@pytest.mark.parametrize("g", list(GRAPHS))
+def test_connected_components_matches(xla_path, g):
+    """FastSV labels equal JAX's and are the least vertex of each of
+    scipy's weak components."""
+    S = GRAPHS[g](False)
+    Aj, At = pair(S)
+    lj = np.asarray(jalg.graph.connected_components(Aj))
+    lt = talg.connected_components(At)
+    assert lt.dtype == torch.int32
+    np.testing.assert_array_equal(lt.numpy(), lj)
+    nc, lab = csg.connected_components(S, connection="weak")
+    least = np.array([np.flatnonzero(lab == c).min() for c in range(nc)])
+    np.testing.assert_array_equal(lt.numpy(), least[lab])
+    assert nc > 1 or g == "random"
+
+
+@pytest.mark.parametrize("g", list(GRAPHS))
+def test_sssp_grb_matches(xla_path, g):
+    """The GrB tier's min-plus vxm + ewise_add MIN loop: exact against
+    JAX and scipy's Dijkstra (integer weights)."""
+    S = GRAPHS[g](True)
+    Aj, At = pair(S)
+    dj = jalg.graph.sssp_grb(Aj, 3)
+    dt = talg.sssp_grb(At, 3)
+    assert dt.dtype.name == "GrB_FP64"
+    vj, qj = (np.asarray(a) for a in dj.to_dense_1d())
+    vt, qt = (a.numpy() for a in dt.to_dense_1d())
+    np.testing.assert_array_equal(qt, qj)
+    np.testing.assert_array_equal(vt[qt], vj[qj])
+    ref = csg.dijkstra(S, indices=3)
+    np.testing.assert_array_equal(qt, np.isfinite(ref))
+    np.testing.assert_array_equal(vt[qt], ref[qt])

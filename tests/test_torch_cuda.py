@@ -1,6 +1,7 @@
 """The port's CUDA kernels (SpMV K1-K4, sort-reduce K5-K8 at every C, the
-gather-permute K9) against their plain torch versions, and the fast
-SpGEMM tier on K5/K6 against scipy, on a card.
+gather-permute K9) against their plain torch versions, the fast SpGEMM
+tier on K5/K6 against scipy, and the union merge and wait() against the
+CPU's results, on a card.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -8,7 +9,7 @@ Imports no JAX, so it runs where only torch is installed:
         tests/test_torch_cuda.py
 
 Every test is marked ``cuda`` and skips where torch sees no card (a CUDA
-kernel has no CPU mode)."""
+kernel has no CPU mode; the torch ops on unsigned dtypes differ too)."""
 
 import dataclasses
 
@@ -405,3 +406,137 @@ def test_fast_tier_full_row_ends_in_empty_runs(cuda_device, monkeypatch, C,
     assert SRD.launches_by_cap[(name, C)] > before
     assert got.nnz == P.nnz
     assert abs(got - want).max() <= GT.FP32_TOL * abs(want).max()
+
+
+def _raw(t):
+    """The bytes of a tensor: bitwise comparison whatever its dtype."""
+    return t.contiguous().view(torch.uint8)
+
+
+def _payload(rng, n, dt):
+    """``n`` values of ``dt`` from random int64 bits: floats of any bit
+    pattern (NaN payloads and -0.0 among them), unsigned over their whole
+    range, complex from two such doubles."""
+    bits = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n))
+    if dt.is_complex:
+        return torch.complex(bits.double(), -bits.double()).to(dt)
+    if dt in (torch.float64, torch.uint64):
+        return bits.view(dt)
+    if dt == torch.float32:
+        return bits.to(torch.int32).view(dt)
+    return bits.to(torch.int16).view(dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.uint64,
+                                torch.uint16, torch.complex128])
+def test_union_merge_on_card_matches_cpu(cuda_device, dt):
+    """The union merge on the card equals the CPU's bitwise and leaves its
+    results on the card."""
+    from graphblas_tpu_torch.kernels import segment as K
+    rng = np.random.default_rng(30)
+    ka = torch.from_numpy(np.unique(rng.integers(0, 1 << 22, 200_000)))
+    kb = torch.from_numpy(np.unique(rng.integers(0, 1 << 22, 300_000)))
+    cpu = (ka, _payload(rng, ka.numel(), dt), kb,
+           _payload(rng, kb.numel(), dt))
+    want = K.union_merge(*cpu)
+    got = K.union_merge(*(t.to(cuda_device) for t in cpu))
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(_raw(g.cpu()), _raw(w))
+
+
+def _unsigned_operands(rng, npdt, n=1 << 16):
+    """Values over the type's whole range, both sides of the top bit, with
+    0, 1, the maximum and divisors 0 and small among them."""
+    top = np.iinfo(npdt).max
+    half = npdt.type(1) << npdt.type(8 * npdt.itemsize - 1)
+    a = rng.integers(0, top, n, dtype=npdt, endpoint=True)
+    b = rng.integers(0, top, n, dtype=npdt, endpoint=True)
+    a[:8] = [0, 1, top, half, half + npdt.type(1), top, 7, half - 1]
+    b[:8] = [0, 0, 1, top, half, half - npdt.type(1), 0, half + 3]
+    b[8::9] = 0
+    b[9::11] = rng.integers(1, 4, b[9::11].size, dtype=npdt)
+    return a, b
+
+
+@pytest.mark.parametrize("dt", [torch.uint16, torch.uint32, torch.uint64])
+def test_unsigned_ops_on_card_match_cpu(cuda_device, dt):
+    """Unsigned order, division and reductions on the card, where torch
+    has no compare, gather or sort for these dtypes: MIN/MAX, the
+    comparators and DIV equal numpy's unsigned results (values above the
+    top bit ordered after the others); wrapping + - x, RDIV, MINV, the
+    bitwise ops, order_key's sort and segment_reduce / full_reduce equal
+    the CPU's; every result stays on the card."""
+    from graphblas_tpu_torch.core import ops as TO
+    from graphblas_tpu_torch.core import types as TT
+    from graphblas_tpu_torch.kernels import segment as K
+    rng = np.random.default_rng(32)
+    npdt = torch.empty(0, dtype=dt).numpy().dtype
+    a, b = _unsigned_operands(rng, npdt)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ca, cb = ta.to(cuda_device), tb.to(cuda_device)
+
+    def on_card(t):
+        assert t.device.type == "cuda"
+        return t.cpu()
+
+    top = int(np.iinfo(npdt).max)
+    div = np.array([0 if y == 0 and x == 0 else top if y == 0 else x // y
+                    for x, y in zip(a.tolist(), b.tolist())], npdt)
+    for name, want in (("MIN", np.minimum(a, b)), ("MAX", np.maximum(a, b)),
+                       ("LT", a < b), ("GE", a >= b), ("DIV", div)):
+        got = on_card(getattr(TO, name).fn(ca, cb)).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    for name in ("PLUS", "MINUS", "TIMES", "RDIV", "BXNOR", "BAND"):
+        op = getattr(TO, name).fn
+        assert torch.equal(_raw(on_card(op(ca, cb))), _raw(op(ta, tb))), \
+            name
+    assert torch.equal(_raw(on_card(TO.MINV.fn(cb))), _raw(TO.MINV.fn(tb)))
+    c = TT.carry(ca)
+    key_dt = torch.uint64 if dt == torch.uint64 else c.dtype
+    k, _ = torch.sort(TT.order_key(c, key_dt))
+    srt = TT.uncarry(TT.order_key(k, key_dt), dt)
+    np.testing.assert_array_equal(on_card(srt).numpy(), np.sort(a))
+    seg = torch.from_numpy(np.sort(rng.integers(0, 700, a.size)))
+    for mon in ("PLUS", "TIMES", "MIN", "MAX", "BOR", "BXNOR"):
+        tm = getattr(TM, mon)
+        got = on_card(K.segment_reduce(ca, seg.to(cuda_device), 701, tm))
+        assert torch.equal(_raw(got), _raw(K.segment_reduce(ta, seg, 701,
+                                                            tm))), mon
+        assert torch.equal(_raw(on_card(K.full_reduce(ca, tm)).reshape(1)),
+                           _raw(K.full_reduce(ta, tm).reshape(1))), mon
+
+
+@pytest.mark.parametrize("fmt", ["sparse", "hyper", "bitmap", "full"])
+@pytest.mark.parametrize("dtype", [np.float32, np.uint64])
+def test_wait_on_card_matches_cpu(cuda_device, fmt, dtype):
+    """set/remove then wait() on the card equals the CPU's, ewise_add of
+    the result too, and every tensor stays on the card."""
+    import graphblas_tpu_torch as gt
+    rng = np.random.default_rng(31)
+    n = 3000
+    S = sps.random(n, n, 0.002 if fmt != "full" else 1.0, random_state=rng,
+                   format="csr")
+    S.data = rng.integers(1, 255, S.nnz).astype(dtype)
+    if dtype == np.uint64:
+        S.data[::3] += np.uint64(2 ** 63)
+    events = GT.pending_events(rng, (n, n), 5000, 1500,
+                               np.argwhere(S.toarray() != 0)[:20000])
+    out = []
+    for dev in ("cpu", "cuda"):
+        A = gt.Matrix.from_scipy(S, device=dev).to_format(fmt)
+        for op, i, j, v in events:
+            if op == "set":
+                A.set_element(i, j, v)
+            else:
+                A.remove_element(i, j)
+        A.wait()
+        C = gt.ewise_add(A, A, gt.operators.PLUS)
+        out.append((A, C))
+    for a, b in zip(*out):
+        for f in ("indptr", "indices", "values", "bitmap"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert (x is None) == (y is None)
+            if y is not None:
+                assert y.device.type == "cuda"
+                assert torch.equal(_raw(y.cpu()), _raw(x))
