@@ -90,7 +90,22 @@ Phases, each printing one line (more for the per-graph phases):
      weak components, least-vertex labels) and sssp_grb (Dijkstra); each
      step's wall cold and warm, one warm ewise_add under torch.profiler
      with the device idle share, and the K1-K9 launches during the phase
-     (no kernel lies on this path).
+     (no kernel lies on this path);
+ 15. the rest of the op layer and the operator sugar at graph (b),
+     weights 1..255 from a seed, each step through gt.* and exact against
+     scipy/numpy on the host: extract (the sentinel-sort and compact
+     branches, 2^16 repeated indices on the sparse repeat path, a masked
+     and accumulated extract), subassign C(I,J)<M> += A(I2,J2), assign
+     under a global mask, C(I,J) = x, C<M> = 0 on the sparse-mask fast
+     path (16 M mask entries holding explicit false), the sugar A[I, J],
+     A[M], A[M] = x, A + A.T, 2 * A and A @ v (K2), kron of RMAT-14 with
+     a 64-vertex seed graph against scipy.sparse.kron, split / concat
+     (bitwise A), diag / vector_diag, resize / reshape, sort by LT and GT
+     (INT8 holding -128 and UINT64 across 2^63 too), gauss-integer struct
+     values (build with a user dup, eWise, reduce), serialize /
+     deserialize (none, zlib, gbz) and from_mtx (an RMAT-16 file); each
+     step's wall cold and warm, one warm extract and one warm subassign
+     traced, the K1-K9 launches during the phase.
 The two lines before the last are the card (nvidia-smi) and one JSON
 object describing the kernels of the main paths (K7 and K8 at 32768, which
 no path runs, print their checks and times in phases 3 and 12 only); the
@@ -1439,6 +1454,457 @@ def ewise_path(S, card):
               f"{k}={v:.1f}" for k, v in parts.items()), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 15. the rest of the op layer and the operator sugar
+# ---------------------------------------------------------------------------
+
+def canon(M):
+    """A scipy matrix as canonical CSR: sorted, summed, no zeros."""
+    M = M.tocsr()
+    M.sum_duplicates()
+    M.eliminate_zeros()
+    M.sort_indices()
+    return M
+
+
+def selector(idx, n):
+    """The n x len(idx) 0/1 matrix P with P[idx[k], k] = 1 (P R P' places
+    a region R at rows / columns idx)."""
+    import scipy.sparse as sps
+    return sps.csr_matrix((np.ones(idx.size, np.float32),
+                           (idx, np.arange(idx.size))),
+                          shape=(n, idx.size))
+
+
+def assert_sci(M, want, what):
+    """A port matrix equals a scipy matrix exactly (entries, values,
+    value type); ``want`` is made canonical here."""
+    want = canon(want)
+    got_k, got_v = host_entries(M)
+    assert M.shape == want.shape, f"{what}: shape {M.shape} {want.shape}"
+    assert np.array_equal(got_k, csr_host_keys(want)), f"{what}: pattern"
+    assert np.array_equal(got_v, want.data.astype(got_v.dtype)), \
+        f"{what}: values"
+
+
+def burbled(fn, word):
+    """fn() with burble on; asserts a burble line holds ``word``."""
+    import graphblas_tpu_torch as gt
+    msgs = []
+    gt.set_option("printf", msgs.append)
+    gt.set_option("burble", True)
+    try:
+        out = fn()
+    finally:
+        gt.set_option("burble", False)
+    assert any(word in m for m in msgs), (word, msgs)
+    return out
+
+
+def traced_share(fn):
+    """One call of fn under torch.profiler: (wall s, device busy s, top
+    device operations)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    busy = _busy_s([e for e in prof.events() if _on_device(e)])
+    assert 0 < busy <= wall, (busy, wall)
+    kern = sorted((e for e in prof.key_averages() if _on_device(e)
+                   and _dev_us(e) > 0), key=lambda e: -_dev_us(e))
+    top = ", ".join(f"{e.key[:40]} {_dev_us(e) / 1e3:.2f} ms x{e.count}"
+                    for e in kern[:4])
+    return wall, busy, top
+
+
+def gauss_step(S, rng, step, info):
+    """Gauss integers {re, im} (a struct type of two int64 fields, as the
+    reference's gauss_demo.c) on graph (b)'s raw RMAT edges, duplicates
+    kept: a build whose dup is a user op, eWise add of G and G', reduce to
+    a vector and to a scalar, each exact against scipy / numpy sums of
+    the two fields (offset by 100 so that no sum is an explicit zero)."""
+    import scipy.sparse as sps
+    import torch
+
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch.testing import rmat_edges
+    n = S.shape[0]
+    r, c, _ = rmat_edges(n.bit_length() - 1, 16, np.random.default_rng(7))
+    re = rng.integers(-3, 4, r.size)
+    im = rng.integers(-3, 4, r.size)
+    gauss = gt.types.struct_type("Gauss", np.int64, (2,))
+    add = gt.binary_op(lambda x, y: x + y, "gauss_add", commutative=True)
+    mon = gt.make_monoid(add, identity=np.array([0, 0]))
+    vals = torch.from_numpy(np.stack([re, im], 1)).cuda()
+    rt, ct = torch.from_numpy(r).cuda(), torch.from_numpy(c).cuda()
+    G = step("struct_build", lambda: gt.Matrix.from_coo(
+        rt, ct, vals, (n, n), dtype=gauss, dup=add))
+    info["struct_raw_edges"] = r.size
+    info["struct_nnz"] = G.nvals
+
+    # entry counts and the fields' sums, each member offset by 100
+    P, RE, IM = (sps.csr_matrix((v, (r, c)), shape=(n, n))
+                 for v in (np.ones(r.size, np.int64), re + 100, im + 100))
+    for X in (P, RE, IM):
+        X.sort_indices()
+
+    def assert_gauss(M, P, RE, IM, what):
+        keys, v = host_entries(M)
+        assert np.array_equal(keys, csr_host_keys(P)), f"{what}: pattern"
+        assert np.array_equal(v[:, 0], RE.data - 100 * P.data) and \
+            np.array_equal(v[:, 1], IM.data - 100 * P.data), f"{what}: values"
+
+    assert_gauss(G, P, RE, IM, "struct build")
+    U = step("struct_ewise_add", lambda: gt.ewise_add(G, G.T, add))
+    P2, RE2, IM2 = (canon(X + X.T) for X in (P, RE, IM))
+    assert_gauss(U, P2, RE2, IM2, "struct ewise_add G + G'")
+    info["struct_ewise_nnz"] = U.nvals
+    del U, P2, RE2, IM2
+    w = step("struct_reduce_rows", lambda: gt.reduce(G, mon))
+    wv, wp = (t.cpu().numpy() for t in w.to_dense_pair())
+    has = np.diff(P.indptr) > 0
+    assert np.array_equal(wp[:, 0], has) and \
+        np.array_equal(wv[has, 0, 0], np.bincount(r, re, n)[has]) and \
+        np.array_equal(wv[has, 0, 1], np.bincount(r, im, n)[has]), \
+        "struct reduce rows"
+    s = step("struct_reduce_scalar", lambda: gt.reduce_scalar(G, mon))
+    assert s.tolist() == [int(re.sum()), int(im.sum())], "struct reduce"
+
+
+def op_layer_path(S, card):
+    """Phase 15 at graph (b), integer weights 1..255 from seed 15: every
+    step through gt.*, each held exactly against scipy/numpy on the host.
+    extract A(I,I) for a random 9/16 of the vertices (the sentinel-sort
+    branch: a random half keeps a quarter of the entries, on the branch's
+    threshold), for a random 1/16 (the compact branch), A(I,J) for 2^16
+    indices drawn with repeats (the sparse repeat path) and a masked,
+    accumulated extract into an existing C; subassign C(I,J)<M> +=
+    A(I2,J2), assign with a global mask (replace off), C(I,J) = scalar
+    and C<M> = 0 with M = A' holding explicit false values (the
+    sparse-mask fast path, 16 M mask entries); the sugar A[I, J], A[M],
+    A[M] = x, A + A.T, 2 * A and A @ v (K2); kron of RMAT-14 with a
+    64-vertex seed graph (2^20 vertices, ~16.7 M entries) against
+    scipy.sparse.kron; split into 2x2 and 3x3 uneven tiles and concat
+    back (bitwise A); diag(d, k) for k in {0, 1, -1} with d the
+    out-degree and vector_diag of A + diag(d); resize to (n + 1000,
+    n - 1000), reshape to (n/2, 2n) by column and by row; sort by LT and
+    GT, an INT8 copy holding -128 and a UINT64 copy across 2^63,
+    descending; gauss-integer struct values (two int64 fields) built from
+    graph (b)'s 16.8 M raw RMAT edges with a user dup, eWise add of G and
+    G', reduce to a vector and a scalar; serialize / deserialize with the
+    codecs none, zlib and gbz (bitwise round trip, blob bytes, MB/s, one
+    call each); from_mtx of an RMAT-16 file that scipy.io.mmwrite writes
+    (RMAT-16, not 20: mmwrite of 16 M entries takes minutes).  Each
+    step's wall cold and warm, one warm extract and one warm subassign
+    traced, K1-K9 launches during the phase."""
+    import os
+    import tempfile
+
+    import scipy.io as sio
+    import scipy.sparse as sps
+    import torch
+
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch.utils import native as NAT
+    ops = gt.operators
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    n = S.shape[0]
+    W = S.copy()
+    W.data = rng.integers(1, 256, W.nnz).astype(np.float32)
+    Wt = W.T.tocsr()
+    A = gt.Matrix.from_scipy(W, device="cuda")
+    walls, parts, info = {}, {}, {}
+    t_part = [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def step(name, fn):
+        out, walls[name + "_cold"], walls[name + "_warm"] = two_walls(fn)
+        return out
+
+    def sub(k):
+        return np.sort(rng.choice(n, k, replace=False))
+
+    part("setup")
+    reset_kernel_launches()
+    # extract: the sentinel branch, the compact branch, repeats, masked
+    I_big, I_small = sub(9 * n // 16), sub(n // 16)
+    C = step("extract_9of16", lambda: burbled(
+        lambda: gt.extract(A, I_big, I_big), "sparse renumber"))
+    info["extract_9of16_nnz"] = C.nvals
+    assert_sci(C, W[I_big][:, I_big], "extract 9/16")
+    del C
+    C = step("extract_1of16", lambda: gt.extract(A, I_small, I_small))
+    assert_sci(C, W[I_small][:, I_small], "extract 1/16")
+    R_small = C
+    Ir = rng.integers(0, n, 1 << 16)
+    Jr = rng.integers(0, n, 1 << 16)
+    C = step("extract_repeats", lambda: burbled(
+        lambda: gt.extract(A, Ir, Jr), "sparse repeat path"))
+    assert_sci(C, W[Ir][:, Jr], "extract with repeats")
+    info["extract_repeats_nnz"] = C.nvals
+    del C
+    I2 = sub(n // 16)
+    M_sm = gt.Matrix.from_scipy(W[I2][:, I2] > 128, device="cuda")
+    Mb = canon(W[I2][:, I2] > 128).astype(np.float32)
+    C = step("extract_masked_accum", lambda: gt.extract(
+        A, I2, I2, C=R_small.dup(), mask=M_sm, accum=ops.PLUS))
+    Rs, T2 = W[I_small][:, I_small], W[I2][:, I2]
+    Z = Rs + T2
+    assert_sci(C, Rs - Rs.multiply(Mb) + Z.multiply(Mb),
+               "masked accumulated extract")
+    del C, R_small, M_sm
+    part("extract")
+    # subassign C(I,J)<M> += A(I2,J2) over a 2^16 x 2^16 region
+    I, J = sub(1 << 16), sub(1 << 16)
+    I3, J3 = sub(1 << 16), sub(1 << 16)
+    A2 = gt.extract(A, I3, J3)
+    A2s = W[I3][:, J3]
+    Mv = W[I][:, J3].copy()
+    Mv.data = Mv.data > 100          # explicit false where the weight <= 100
+    M = gt.Matrix.from_scipy(Mv, device="cuda")
+    Mtrue = canon(Mv).astype(np.float32)
+    PI, PJ = selector(I, n), selector(J, n)
+    Rg = W[I][:, J]
+    C = step("subassign_mask_accum", lambda: gt.subassign(
+        A.dup(), A2, I, J, mask=M, accum=ops.PLUS))
+    Znew = Rg + A2s.multiply(Mtrue)
+    assert_sci(C, W - PI @ Rg @ PJ.T + PI @ Znew @ PJ.T,
+               "subassign C(I,J)<M> += A(I2,J2)")
+    del C
+    # assign with a global mask (n x n: A' with explicit false values)
+    Mg_s = Wt.copy()
+    Mg_s.data = Mg_s.data > 128      # explicit false where <= 128
+    Mg = gt.Matrix.from_scipy(Mg_s, device="cuda")
+    Mgb = canon(Mg_s).astype(np.float32)
+    C = step("assign_global_mask", lambda: gt.assign(A.dup(), A2, I, J,
+                                                     mask=Mg))
+    A2g = PI @ A2s @ PJ.T
+    Wreg = PI @ Rg @ PJ.T
+    assert_sci(C, W - Wreg.multiply(Mgb) + A2g.multiply(Mgb),
+               "assign C<M>(I,J) = A(I2,J2)")
+    del C
+    # C(I,J) = scalar over a 1024 x 1024 region
+    Is, Js = sub(1024), sub(1024)
+    C = step("subassign_scalar", lambda: gt.subassign(A.dup(), 7.0, Is, Js))
+    PIs, PJs = selector(Is, n), selector(Js, n)
+    full = sps.csr_matrix(np.full((1024, 1024), 7.0, np.float32))
+    assert_sci(C, W - PIs @ W[Is][:, Js] @ PJs.T + PIs @ full @ PJs.T,
+               "C(I,J) = 7")
+    del C
+    # C<M> = 0, M = A' by its values (explicit false), the fast path
+    Mf_s = Wt.copy()
+    Mf_s.data = Wt.data.astype(np.int64) % 2 == 0   # false where odd
+    Mf = gt.Matrix.from_scipy(Mf_s, device="cuda")
+    info["mask_entries"] = Mf.nvals
+    Mfs = canon(Mf_s).astype(np.float32)
+    C = step("assign_scalar_mask", lambda: burbled(
+        lambda: gt.assign(A.dup(), 0.0, mask=Mf), "fast path"))
+    E = canon(W + 1000 * Mfs)
+    assert_entries(C, csr_host_keys(E),
+                   np.where(E.data >= 1000, 0, E.data).astype(np.float32),
+                   "C<M> = 0")
+    del C, Mg
+    part("assign")
+    # the sugar
+    C = step("sugar_A[I,J]", lambda: A[I_small, I_small])
+    assert_sci(C, W[I_small][:, I_small], "A[I, J]")
+    C = step("sugar_A[M]", lambda: A[Mf])
+    assert_sci(C, W.multiply(Mfs), "A[M]")
+
+    def set_mask():
+        B = A.dup()
+        B[Mf] = 0.0
+        return B
+
+    C = step("sugar_A[M]=0", set_mask)
+    assert_entries(C, csr_host_keys(E),
+                   np.where(E.data >= 1000, 0, E.data).astype(np.float32),
+                   "A[M] = 0")
+    del E
+    C = step("sugar_A+A.T", lambda: A + A.T)
+    u, a, b = union_ref(W, Wt)
+    assert_entries(C, u, (a + b).astype(np.float32), "A + A.T")
+    del u, a, b
+    C = step("sugar_2*A", lambda: 2 * A)
+    assert C.dtype == gt.types.FP64
+    assert_sci(C, 2 * W.astype(np.float64), "2 * A")
+    x = gt.Vector.from_dense(torch.ones(n, dtype=torch.float32,
+                                        device="cuda"))
+    rowsum = np.asarray(W.astype(np.float64).sum(axis=1)).ravel()
+    assert rowsum.max() < 2 ** 24      # every partial sum exact in fp32
+    y = step("sugar_A@v", lambda: A @ x)
+    yv, yp = (t.cpu().numpy() for t in y.to_dense_1d())
+    has = np.diff(W.indptr) > 0            # empty rows: no entry in y
+    assert np.array_equal(yp, has) and np.array_equal(
+        yv[has], rowsum[has].astype(np.float32)), "A @ v"
+    del C, y, x, Mf, Mfs
+    part("sugar")
+    # kron: RMAT-14 (weights) x a 64-vertex seed graph of 64 edges
+    G = rmat_graph(14)
+    G.data = rng.integers(1, 256, G.nnz).astype(np.float32)
+    sd = sps.csr_matrix((rng.integers(1, 5, 64).astype(np.float32),
+                         (rng.integers(0, 64, 64), rng.integers(0, 64, 64))),
+                        shape=(64, 64))
+    sd.sum_duplicates()
+    Gt = gt.Matrix.from_scipy(G, device="cuda")
+    Sd = gt.Matrix.from_scipy(sd, device="cuda")
+    K = step("kron", lambda: gt.kronecker(Gt, Sd, ops.TIMES))
+    info["kron_nnz"] = K.nvals
+    assert_sci(K, sps.kron(G, sd), "kron")
+    del K, Gt, Sd, G
+    part("kron")
+    # split into 2x2 and 3x3 uneven tiles, concat back: bitwise A
+    for name, rs in (("split_concat_2x2", [n // 2, n - n // 2]),
+                     ("split_concat_3x3",
+                      [n // 5, n // 2, n - n // 5 - n // 2])):
+        tiles = step(name.replace("concat", "only"),
+                     lambda: gt.split(A, rs, rs))
+        C = step(name, lambda: gt.concat(tiles))
+        assert all(torch.equal(getattr(C, f), getattr(A, f))
+                   for f in ("indptr", "indices", "values")), name
+        del tiles, C
+    part("concat")
+    # diag of the out-degree, vector_diag of A + diag(d)
+    deg = np.diff(W.indptr).astype(np.float32)
+    d = gt.Vector.from_dense(torch.from_numpy(deg).cuda())
+    ar = np.arange(n, dtype=np.int64)
+    for k in (0, 1, -1):
+        D = step(f"diag_{k}", lambda: gt.diag(d, k))
+        dim = n + abs(k)          # every entry of d is stored, zeros too
+        assert_entries(D, (ar + max(-k, 0)) * dim + ar + max(k, 0), deg,
+                       f"diag k={k}")
+    D0 = gt.diag(d, 0)
+    v = step("vector_diag", lambda: gt.vector_diag(
+        gt.ewise_add(A, D0, ops.PLUS), 0))
+    vv, vp = (t.cpu().numpy() for t in v.to_dense_1d())
+    assert vp.all() and np.array_equal(vv, W.diagonal() + deg), \
+        "vector_diag"
+    del D, D0, d, v
+    part("diag")
+    # resize; reshape to (n/2, 2n) by column and by row
+    def resized():
+        B = A.dup()
+        B.resize(n + 1000, n - 1000)
+        return B
+
+    C = step("resize", resized)
+    Wr = W[:, :n - 1000].tocsr()
+    assert_sci(C, sps.vstack([Wr, sps.csr_matrix((1000, n - 1000),
+                                                 dtype=np.float32)]),
+               "resize")
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(W.indptr))
+    cols = W.indices.astype(np.int64)
+    lin = cols * n + rows
+    ref = sps.csr_matrix((W.data, (lin % (n // 2), lin // (n // 2))),
+                         shape=(n // 2, 2 * n))
+    C = step("reshape_by_col", lambda: A.reshape(n // 2, 2 * n))
+    assert_sci(C, ref, "reshape by column")
+    C = step("reshape_by_row", lambda: A.reshape(n // 2, 2 * n,
+                                                 by_col=False))
+    lin = rows * n + cols
+    assert_sci(C, sps.csr_matrix((W.data, (lin // (2 * n), lin % (2 * n))),
+                                 shape=(n // 2, 2 * n)), "reshape by row")
+    del C, ref, lin
+    part("resize")
+    # sort: LT and GT; INT8 holding -128 and UINT64 across 2^63, GT
+    w = W.data.astype(np.int64)
+    starts = np.repeat(W.indptr[:-1].astype(np.int64), np.diff(W.indptr))
+
+    def check_sort(M, rank, top, what, op):
+        CP = step(what, lambda: gt.sort(M, op))
+        order = np.argsort(rows * (top + 1) + rank, kind="stable")
+        cv, pv = (host_entries(X) for X in CP)
+        ranks = np.arange(w.size) - starts
+        assert np.array_equal(cv[0], rows * n + ranks), f"{what}: C pattern"
+        assert np.array_equal(pv[0], cv[0]), f"{what}: P pattern"
+        assert np.array_equal(pv[1], cols[order]), f"{what}: P"
+        return cv[1], order
+
+    got, order = check_sort(A, w, 255, "sort_LT", ops.LT)
+    assert np.array_equal(got, W.data[order]), "sort LT values"
+    got, order = check_sort(A, 255 - w, 255, "sort_GT", ops.GT)
+    assert np.array_equal(got, W.data[order]), "sort GT values"
+    W8 = W.copy()
+    W8.data = (w - 129).astype(np.int8)             # -128 .. 126
+    assert (W8.data == -128).any()
+    A8 = gt.Matrix.from_scipy(W8, device="cuda")
+    got, order = check_sort(A8, 126 - (w - 129), 255, "sort_GT_int8",
+                            ops.GT)
+    assert np.array_equal(got, W8.data[order]) and got.dtype == np.int8, \
+        "sort INT8 GT values"
+    del A8, W8
+    hi = w % 2 == 0                                 # above 2^63 where even
+    u64 = np.where(hi, np.uint64(1 << 63), np.uint64(1 << 62)) + \
+        w.astype(np.uint64)
+    W64 = W.astype(np.uint64)
+    W64.data = u64
+    A64 = gt.Matrix.from_scipy(W64, device="cuda")
+    assert A64.values.dtype == torch.uint64
+    got, order = check_sort(A64, 511 - (hi * 256 + w), 511,
+                            "sort_GT_uint64", ops.GT)
+    assert np.array_equal(got, u64[order]), "sort UINT64 GT values"
+    del A64, W64, u64, got, order, starts
+    part("sort")
+    # gauss-integer struct values: build with a user dup, eWise, reduce
+    gauss_step(S, rng, step, info)
+    part("struct")
+    # serialize / deserialize
+    mbytes = sum(t.numel() * t.element_size()
+                 for t in (A.indptr, A.indices, A.values)) / 1e6
+    for codec in ("none", "zlib", "gbz"):      # one call each: host-bound
+        blob, walls[f"serialize_{codec}"] = timed(
+            lambda: gt.serialize(A, codec))
+        B, walls[f"deserialize_{codec}"] = timed(
+            lambda: gt.deserialize(blob, device="cuda"))
+        assert all(torch.equal(getattr(B, f), getattr(A, f))
+                   for f in ("indptr", "indices", "values")), codec
+        info[f"{codec}_MB"] = len(blob) / 1e6
+        info[f"{codec}_write_MB_s"] = mbytes / walls[f"serialize_{codec}"]
+        info[f"{codec}_read_MB_s"] = mbytes / walls[f"deserialize_{codec}"]
+        del blob, B
+    part("serialize")
+    # from_mtx of an RMAT-16 file written by scipy
+    W16 = rmat_graph(16)
+    W16.data = rng.integers(1, 256, W16.nnz).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rmat16.mtx")
+        sio.mmwrite(path, W16)
+        part("mmwrite")
+        M16 = step("from_mtx", lambda: gt.Matrix.from_mtx(path,
+                                                          device="cuda"))
+    info["mtx_reader"] = "native" if NAT.library() is not None else "scipy"
+    assert_sci(M16, W16.astype(np.float64), "from_mtx")
+    del M16
+    launches = kernel_launches()
+    assert launches["K2"] > 0, launches
+    part("from_mtx")
+    # one warm extract and one warm subassign under the profiler
+    gt.extract(A, I_big, I_big)
+    tr = {"extract_9of16": traced_share(lambda: gt.extract(A, I_big,
+                                                           I_big))}
+    tr["subassign"] = traced_share(lambda: gt.subassign(
+        A.dup(), A2, I, J, mask=M, accum=ops.PLUS))
+    part("trace")
+    print(f"[15 op layer] {card} | graph (b) RMAT-20 n={n} nnz={W.nnz}, "
+          f"weights 1..255; every step exact vs scipy/numpy | "
+          + " ".join(f"{k}={v}" for k, v in info.items())
+          + " | walls s: " + " ".join(f"{k}={v:.4f}" for k, v in
+                                     walls.items())
+          + " | traced warm: " + "; ".join(
+              f"{k} wall {w_:.4f} s, device busy {b_:.4f} s (idle "
+              f"{1 - b_ / w_:.1%}), top {t_}" for k, (w_, b_, t_) in
+              tr.items())
+          + f" | K1-K9 launches during the phase: {launches} | phase "
+          f"{time.perf_counter() - t_phase:.1f} s, by part (checks and "
+          f"host references included): " + " ".join(
+              f"{k}={v:.1f}" for k, v in parts.items()), flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1559,6 +2025,8 @@ def main():
     counts["K9"], ta["K9"] = phase_permute(card, errs)
     # 14. eWise, pending events, unsigned arithmetic, the GrB algorithms
     ewise_path(graph_b, card)
+    # 15. the rest of the op layer and the operator sugar
+    op_layer_path(graph_b, card)
     # result lines
     print(card_line())
     print(json.dumps({"kernels": [

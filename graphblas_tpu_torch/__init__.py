@@ -3,8 +3,11 @@
 The GraphBLAS object model (13 types, the 1553 named semirings in
 ``names``, non-blocking pending updates), the SpMV main path (build ->
 mxv/vxm over plus-times, min-plus and lor-land with mask and accum -> CSC
--> PageRank, BFS, SSSP), eWise add/mult/union, and sparse x sparse mxm
-(the SELL ESC engine, masked SpGEMM, triangle counting) on torch
+-> PageRank, BFS, SSSP), eWise add/mult/union, sparse x sparse mxm
+(the SELL ESC engine, masked SpGEMM, triangle counting), the rest of the
+op layer (extract, assign/subassign, kronecker, concat/split, diag,
+resize/reshape, sort, serialize, Matrix Market input) and the @GrB
+operator sugar (``A[I, J]``, ``A[M] = x``, ``A + B``, ``A @ v``) on torch
 tensors, with hand-written Hopper (sm_90a) CUDA kernels for the SpMV hot
 path (``csrc/spmv.cu``) and the SpGEMM sort-reduce
 (``csrc/sortreduce.cu``).  The JAX package
@@ -37,9 +40,11 @@ from .core.ops import (BinaryOp, IndexUnaryOp, UnaryOp, binary_op,
                        index_unary_op, unary_op)
 from .core.names import lookup as lookup_name
 from .core.semiring import Semiring, semiring as make_semiring
-from .api import (apply, ewise_add, ewise_mult, ewise_union, mxm,
+from .api import (apply, assign, concat, deserialize, diag, ewise_add,
+                  ewise_mult, ewise_union, extract, kronecker, mxm,
                   mxm_reduce_scalar, mxv, reduce, reduce_scalar, select,
-                  transpose, vxm, vxm_chain)
+                  serialize, sort, split, subassign, transpose, vector_diag,
+                  vxm, vxm_chain)
 from .algorithms import (bfs_parents, connected_components, sssp_grb,
                          triangle_count)
 

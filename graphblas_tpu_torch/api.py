@@ -1,5 +1,5 @@
-"""Public operation API (counterpart of ``graphblas_tpu.api``: the eWise
-ops and the subset the SpMV and SpGEMM paths need).  Every op returns the
+"""Public operation API (counterpart of ``graphblas_tpu.api``, with
+serialize / deserialize beside it).  Every op returns the
 result; passing ``C=`` updates C in place through accum/mask and returns
 it, like the C API.  Every op first applies the events still queued on
 its operands (``Matrix.wait``)."""
@@ -130,3 +130,85 @@ def mxm_reduce_scalar(A, B, semiring, *, mask=None, desc=NULL):
     fused path does not apply."""
     _wait(A, B, mask)
     return _mxm.mxm_reduce_scalar(A, B, semiring, mask=mask, desc=desc)
+
+
+def extract(A, I=None, J=None, *, C=None, mask=None, accum=None, desc=NULL,
+            out_dtype=None):
+    """C<M> = accum(C, A(I,J)) (GrB_extract); I/J: None (all), a slice, a
+    range or an index array."""
+    from .ops import extract as _ex
+    _wait(A, C, mask)
+    return _finish(C, _ex.extract(A, I, J, C=C, mask=mask, accum=accum,
+                                  desc=desc, out_dtype=out_dtype))
+
+
+def assign(C, A, I=None, J=None, *, mask=None, accum=None, desc=NULL):
+    """C<M>(I,J) = accum(C(I,J), A), the mask over all of C
+    (GrB_assign); A a Matrix or a scalar."""
+    from .ops import assign as _as
+    _wait(C, A, mask)
+    return _finish(C, _as.assign(C, A, I, J, mask=mask, accum=accum,
+                                 desc=desc, subassign=False))
+
+
+def subassign(C, A, I=None, J=None, *, mask=None, accum=None, desc=NULL):
+    """C(I,J)<M> = accum(C(I,J), A), the mask over the region
+    (GxB_subassign)."""
+    from .ops import assign as _as
+    _wait(C, A, mask)
+    return _finish(C, _as.assign(C, A, I, J, mask=mask, accum=accum,
+                                 desc=desc, subassign=True))
+
+
+def kronecker(A, B, op, *, C=None, mask=None, accum=None, desc=NULL,
+              out_dtype=None):
+    from .ops import kron as _kron
+    _wait(A, B, C, mask)
+    return _finish(C, _kron.kron(A, B, op, C=C, mask=mask, accum=accum,
+                                 desc=desc, out_dtype=out_dtype))
+
+
+def concat(tiles, *, C=None):
+    from .ops import concat as _cc
+    _wait(C, *(t for row in tiles for t in row))
+    return _finish(C, _cc.concat(tiles))
+
+
+def split(A, row_sizes, col_sizes):
+    from .ops import concat as _cc
+    _wait(A)
+    return _cc.split(A, row_sizes, col_sizes)
+
+
+def diag(v, k=0):
+    """The matrix with v on its k-th diagonal (GrB_Matrix_diag)."""
+    from .ops import diag as _dg
+    _wait(v)
+    return _dg.diag(v, k)
+
+
+def sort(A, op=None, *, ascending=True, desc=NULL):
+    """(C, P): each row's values sorted, and their columns
+    (GxB_Matrix_sort)."""
+    from .ops import sort as _sort
+    _wait(A)
+    return _sort.sort(A, op, ascending=ascending, desc=desc)
+
+
+def vector_diag(A, k=0):
+    """v = the k-th diagonal of A (GxB_Vector_diag)."""
+    from .ops import diag as _dg
+    _wait(A)
+    return _dg.vector_diag(A, k)
+
+
+def serialize(A, compression=None, level=None, desc=None):
+    """Matrix -> blob (GxB_Matrix_serialize); see ops/serialize.py."""
+    from .ops import serialize as _ser
+    return _ser.serialize(A, compression, level, desc)
+
+
+def deserialize(blob, device=None):
+    """Blob -> Matrix (GxB_Matrix_deserialize) on ``device``."""
+    from .ops import serialize as _ser
+    return _ser.deserialize(blob, device)

@@ -121,13 +121,13 @@ def _dense_to_sparse(a: Matrix, orient: str) -> Matrix:
         if a.fmt == FULL else a.bitmap
     vals = a._vals_expanded()
     if orient == COL:
-        present_o, vals_o = present.T, vals.T
+        present_o, vals_o = present.T, vals.transpose(0, 1)
         nvec, veclen = a.ncols, a.nrows
     else:
         present_o, vals_o = present, vals
         nvec, veclen = a.nrows, a.ncols
     pos = torch.nonzero(present_o.reshape(-1)).reshape(-1)
-    kept_vals = T.take(vals_o.reshape(-1), pos)
+    kept_vals = T.take(vals_o.reshape((-1,) + a.dtype.shape), pos)
     vec_ids = (pos // veclen).to(INDEX)
     idx = (pos % veclen).to(INDEX)
     indptr = K.indptr_from_sorted(vec_ids, nvec, INDEX)

@@ -105,7 +105,8 @@ class Matrix:
             self.indptr = torch.zeros(nvec + 1, dtype=INDEX,
                                       device=self.device)
             self.indices = torch.zeros(0, dtype=INDEX, device=self.device)
-            self.values = torch.zeros(0, dtype=self.dtype.torch_dtype,
+            self.values = torch.zeros((0,) + self.dtype.shape,
+                                      dtype=self.dtype.torch_dtype,
                                       device=self.device)
             if self.fmt == HYPER:
                 self.h = torch.zeros(0, dtype=INDEX, device=self.device)
@@ -149,8 +150,8 @@ class Matrix:
         device = CFG.default_device(device)
         if fmt in (BITMAP, FULL):
             ty = T.lookup(dtype)
-            vals = torch.zeros((nrows, ncols), dtype=ty.torch_dtype,
-                               device=device)
+            vals = torch.zeros((nrows, ncols) + ty.shape,
+                               dtype=ty.torch_dtype, device=device)
             bm = torch.zeros((nrows, ncols), dtype=torch.bool,
                              device=device) if fmt == BITMAP else None
             return cls((nrows, ncols), dtype, fmt, orient, values=vals,
@@ -204,6 +205,16 @@ class Matrix:
                                       device=device),
                    values=_as_tensor(vals, device=device))
 
+    @classmethod
+    def from_mtx(cls, path, dtype=None, orient=None, device=None):
+        """Load a Matrix Market file (the native parser of
+        ``utils/native.py``, scipy's ``mmread`` without the library);
+        duplicates are summed."""
+        from ..utils import native as NV
+        rows, cols, vals, shape = NV.read_mtx(str(path))
+        return cls.from_coo(rows, cols, vals, shape, dtype=dtype,
+                            dup="plus", orient=orient, device=device)
+
     def to_scipy(self):
         import scipy.sparse as sps
         a = self.to_format(SPARSE)
@@ -217,6 +228,12 @@ class Matrix:
         them is safe."""
         from .convert import _clone
         return _clone(self.wait())
+
+    def clear(self) -> None:
+        """GrB_Matrix_clear: remove all entries, keep shape and type."""
+        fmt = SPARSE if self.fmt == HYPER else self.fmt
+        self._replace_from(Matrix.new(self.dtype, self.nrows, self.ncols,
+                                      fmt, self.orient, self.device))
 
     def _replace_from(self, other: "Matrix") -> None:
         """In-place adoption of another matrix's contents (reference:
@@ -233,10 +250,10 @@ class Matrix:
         """values with iso-compression undone."""
         if not self.iso:
             return self.values
+        one = self.values.reshape(self.dtype.shape)
         if self.fmt in (SPARSE, HYPER):
-            n = self.indices.shape[0]
-            return self.values.reshape(()).expand(n)
-        return self.values.reshape(()).expand(self.shape)
+            return one.expand((self.indices.shape[0],) + self.dtype.shape)
+        return one.expand(self.shape + self.dtype.shape)
 
     # -- dense pair (the universal internal representation) ----------------
 
@@ -255,7 +272,7 @@ class Matrix:
         a = self.to_format(SPARSE) if self.fmt == HYPER else self
         rows, cols = a._coords()
         rows, cols = rows.long(), cols.long()
-        dense = fillv.expand(self.shape).clone()
+        dense = fillv.expand(self.shape + ty.shape).clone()
         T.bits(dense)[rows, cols] = T.bits(a._vals_expanded())
         present = torch.zeros(self.shape, dtype=torch.bool,
                               device=self.device)
@@ -296,6 +313,130 @@ class Matrix:
     def to_orient(self, orient) -> "Matrix":
         return self.to_format(self.fmt, orient)
 
+    # -- @GrB-style indexing and operator sugar (reference: GraphBLAS/@GrB
+    #    m-files; logical indexing via gblogassign.c / gblogextract.c) ----
+
+    @staticmethod
+    def _is_point(x) -> bool:
+        return isinstance(x, (int, np.integer))
+
+    def __getitem__(self, ij):
+        """A[i, j] -> the element; A[I, J] with slices / lists -> extract;
+        A[M] with a Matrix -> C<M> = A, the mask read by its values (the
+        @GrB logical index: entries of M that hold false select
+        nothing)."""
+        from .. import api
+        if isinstance(ij, Matrix):
+            from . import ops as OPS
+            return api.apply(self, OPS.IDENTITY, mask=ij)
+        i, j = ij
+        if self._is_point(i) and self._is_point(j):
+            return self.extract_element(i, j)
+        I = [i] if self._is_point(i) else i
+        J = [j] if self._is_point(j) else j
+        return api.extract(self, I, J)
+
+    def __setitem__(self, ij, value):
+        """A[i, j] = x -> set_element; A[I, J] = x or a Matrix ->
+        subassign; A[M] = x -> C<M> = x over all of A, the mask read by
+        its values (the reference's headline C(M) = x, gblogassign.c:
+        "C(M)=A in 0.8 s vs MATLAB 4-5 days")."""
+        from .. import api
+        if isinstance(ij, Matrix):
+            api.assign(self, value, mask=ij)
+            return
+        i, j = ij
+        if self._is_point(i) and self._is_point(j) and np.isscalar(value):
+            self.set_element(i, j, value)
+            return
+        I = [i] if self._is_point(i) else i
+        J = [j] if self._is_point(j) else j
+        api.subassign(self, value, I, J)
+
+    def _ewise_or_bind(self, other, op, reverse=False):
+        from .. import api
+        if isinstance(other, Matrix):
+            a, b = (other, self) if reverse else (self, other)
+            return api.ewise_add(a, b, op)
+        bind = ("first", other) if reverse else ("second", other)
+        return api.apply(self, op, bind=bind)
+
+    def __add__(self, other):
+        from . import ops as OPS
+        return self._ewise_or_bind(other, OPS.PLUS)
+
+    def __radd__(self, other):
+        from . import ops as OPS
+        return self._ewise_or_bind(other, OPS.PLUS, reverse=True)
+
+    def __sub__(self, other):
+        from . import ops as OPS
+        return self._ewise_or_bind(other, OPS.MINUS)
+
+    def __rsub__(self, other):
+        from . import ops as OPS
+        return self._ewise_or_bind(other, OPS.MINUS, reverse=True)
+
+    def __mul__(self, other):
+        from .. import api
+        from . import ops as OPS
+        if isinstance(other, Matrix):
+            return api.ewise_mult(self, other, OPS.TIMES)
+        return api.apply(self, OPS.TIMES, bind=("second", other))
+
+    def __rmul__(self, other):
+        from .. import api
+        from . import ops as OPS
+        return api.apply(self, OPS.TIMES, bind=("first", other))
+
+    def __truediv__(self, other):
+        from .. import api
+        from . import ops as OPS
+        if isinstance(other, Matrix):
+            return api.ewise_mult(self, other, OPS.DIV)
+        return api.apply(self, OPS.DIV, bind=("second", other))
+
+    def __matmul__(self, other):
+        """A @ B -> mxm, A @ v -> mxv, over PLUS_TIMES."""
+        from .. import api
+        from .semiring import PLUS_TIMES
+        if isinstance(other, Vector):
+            return api.mxv(self, other, PLUS_TIMES)
+        return api.mxm(self, other, PLUS_TIMES)
+
+    def __neg__(self):
+        from .. import api
+        from . import ops as OPS
+        return api.apply(self, OPS.AINV)
+
+    def __abs__(self):
+        from .. import api
+        from . import ops as OPS
+        return api.apply(self, OPS.ABS)
+
+    def __pow__(self, s):
+        from .. import api
+        from . import ops as OPS
+        return api.apply(self, OPS.POW, bind=("second", s))
+
+    def reduce(self, mon, **kw):
+        from .. import api
+        return api.reduce(self, mon, **kw)
+
+    def reduce_scalar(self, mon, **kw):
+        from .. import api
+        return api.reduce_scalar(self, mon, **kw)
+
+    def resize(self, nrows, ncols) -> None:
+        """GxB_Matrix_resize, in place."""
+        from ..ops.resize import resize as _rs
+        self._replace_from(_rs(self, nrows, ncols))
+
+    def reshape(self, nrows, ncols, by_col=True):
+        """GxB_Matrix_reshapeDup: a new matrix."""
+        from ..ops.resize import reshape as _rh
+        return _rh(self, nrows, ncols, by_col)
+
     # -- transpose / cast ---------------------------------------------------
 
     @property
@@ -320,11 +461,13 @@ class Matrix:
             ty = T.upcast_pair(self.dtype, other.dtype)
             av, bv = T.cast(av, ty), T.cast(bv, ty)
         if rtol == 0.0 and atol == 0.0:
-            return not bool((ap & (T.carry(av) != T.carry(bv))).any())
+            ne = T.carry(av) != T.carry(bv)
+            return not bool((ap & ne.reshape(ap.shape + (-1,)).any(-1))
+                            .any())
         wide = T.FC64 if av.is_complex() else T.FP64
         av, bv = T.cast(av, wide), T.cast(bv, wide)
         close = (av - bv).abs() <= atol + rtol * bv.abs()
-        return bool((close | ~ap).all())
+        return bool((close.reshape(ap.shape + (-1,)).all(-1) | ~ap).all())
 
     # -- pending-tuple machinery (non-blocking mode) -----------------------
 
@@ -439,7 +582,7 @@ class Matrix:
         if self.fmt == BITMAP and tuple(self.bitmap.shape) != self.shape:
             raise E.InvalidObject("bitmap shape")
         if self.fmt in (BITMAP, FULL) and not self.iso:
-            if tuple(self.values.shape) != self.shape:
+            if tuple(self.values.shape) != self.shape + self.dtype.shape:
                 raise E.InvalidObject("values shape")
 
     def optimize(self, plan_path=None) -> "Matrix":
@@ -564,6 +707,17 @@ class Vector(Matrix):
 
     def is_stored_element(self, i, j=None) -> bool:
         return super().is_stored_element(i, 0 if j is None else j)
+
+    def __getitem__(self, i):
+        if isinstance(i, tuple):
+            return super().extract_element(*i)
+        return self.extract_element(i)
+
+    def __setitem__(self, i, value):
+        if isinstance(i, tuple):
+            super().set_element(i[0], i[1], value)
+        else:
+            self.set_element(i, value)
 
 
 @dataclasses.dataclass(eq=False, repr=False, init=False)

@@ -78,7 +78,12 @@ class Monoid:
             np.dtype(dtype))
 
     def identity_tensor(self, ty: T.Type, device) -> torch.Tensor:
-        return T.scalar(self.identity_for(ty.np_dtype), ty, device)
+        """The identity on ``device``: 0-d, or of a struct's field shape
+        (a struct monoid's identity is an array)."""
+        ident = np.asarray(self.identity_for(ty.np_dtype))
+        if ident.ndim:
+            return torch.from_numpy(ident.astype(ty.np_dtype)).to(device)
+        return T.scalar(ident, ty, device)
 
     def __repr__(self):
         return f"Monoid({self.name})"

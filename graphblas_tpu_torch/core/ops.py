@@ -65,7 +65,7 @@ class BinaryOp:
             return self.ztype
         if self.positional:
             return T.INT64
-        if ytype is None or xtype is ytype:
+        if ytype is None or xtype == ytype:
             return xtype
         return T.upcast_pair(xtype, ytype)
 

@@ -15,6 +15,12 @@ through a signed carrier (``carry``/``uncarry``): UINT16 in int32 and
 UINT32 in int64, wrapped with a mask; UINT64 as its int64 bit pattern,
 ordered by ``order_key`` (the sign bit flipped).  Data moves through the
 same-width signed view (``bits``/``unbits``, ``take``, ``where``).
+
+A user-defined struct type (``struct_type``; reference: GrB_Type_new, as
+in Demo gauss_demo.c / wildtype_demo.c) has a field shape: its values
+are tensors of the field dtype with trailing dims ``shape``, stored
+(nnz, *shape) in the sparse formats and (nrows, ncols, *shape) in the
+dense ones, and it casts only to itself.
 """
 
 from __future__ import annotations
@@ -30,8 +36,13 @@ class Type:
     """A GraphBLAS scalar type (reference: GrB_Type, Source/GB_opaque.h)."""
 
     name: str
-    dtype: np.dtype          # numpy dtype
+    dtype: np.dtype          # numpy dtype (of a struct's fields)
     torch_dtype: torch.dtype
+    shape: tuple = ()        # a struct type's field shape
+
+    @property
+    def is_struct(self) -> bool:
+        return bool(self.shape)
 
     @property
     def np_dtype(self):
@@ -51,7 +62,7 @@ class Type:
 
     @property
     def is_bool(self) -> bool:
-        return self.np_dtype == np.bool_
+        return self.np_dtype == np.bool_ and not self.shape
 
     @property
     def is_signed(self) -> bool:
@@ -93,11 +104,27 @@ _BY_TORCH = {t.torch_dtype: t for t in ALL_TYPES}
 _BY_NAME = {t.name: t for t in ALL_TYPES}
 
 
+_STRUCTS: dict = {}      # struct types by name, as they are made
+
+
+def struct_type(name: str, dtype, shape) -> Type:
+    """A user-defined struct type of fields ``dtype`` with field shape
+    ``shape`` (e.g. (2,) for a gauss integer, (4, 4) for wildtype).  It is
+    found by name afterwards (``lookup``)."""
+    np_dt = np.dtype(dtype)
+    ty = Type(name, np_dt, _BY_NP[np_dt].torch_dtype,
+              tuple(int(d) for d in shape))
+    _STRUCTS[name] = ty
+    return ty
+
+
 def lookup(x) -> Type:
     """Resolve a Type from a Type / torch dtype / numpy dtype-like / name /
     tensor."""
     if isinstance(x, Type):
         return x
+    if isinstance(x, str) and x in _STRUCTS:
+        return _STRUCTS[x]
     if isinstance(x, torch.dtype):
         try:
             return _BY_TORCH[x]
@@ -110,6 +137,8 @@ def lookup(x) -> Type:
     try:
         dt = np.dtype(x)
     except TypeError:
+        if isinstance(x, str):
+            raise KeyError(f"no GraphBLAS type named {x!r}") from None
         dt = np.dtype(x.dtype)
     try:
         return _BY_NP[dt]
@@ -163,7 +192,10 @@ def take(x: torch.Tensor, idx) -> torch.Tensor:
 
 def where(cond: torch.Tensor, a: torch.Tensor, b) -> torch.Tensor:
     """``torch.where`` for any dtype (``b`` may be a 0-d tensor of a's
-    dtype)."""
+    dtype); ``cond`` broadcasts over a struct's trailing field dims."""
+    extra = a.dim() - cond.dim()
+    if extra > 0:
+        cond = cond.reshape(tuple(cond.shape) + (1,) * extra)
     if a.dtype not in _SIGNED:
         return torch.where(cond, a, b)
     return unbits(torch.where(cond, bits(a), bits(b)), a.dtype)
@@ -171,7 +203,12 @@ def where(cond: torch.Tensor, a: torch.Tensor, b) -> torch.Tensor:
 
 def scalar(value, ty: Type, device) -> torch.Tensor:
     """A 0-d tensor of type ``ty`` on ``device`` (explicit dtype: torch's
-    default float is float32, the JAX package's is float64)."""
+    default float is float32, the JAX package's is float64); for a
+    struct type a tensor of its field shape."""
+    if ty.shape:
+        arr = np.broadcast_to(np.asarray(value).astype(ty.np_dtype),
+                              ty.shape)
+        return torch.from_numpy(arr.copy()).to(device)
     return torch.tensor(np.asarray(value, ty.np_dtype).item(),
                         dtype=ty.torch_dtype, device=device)
 
@@ -183,6 +220,15 @@ def cast(value: torch.Tensor, to) -> torch.Tensor:
     to = lookup(to)
     src = value
     dt = to.torch_dtype
+    if to.is_struct:
+        # a struct casts only to itself (GB_casting.h): the source must
+        # already carry the field dims
+        k = len(to.shape)
+        if src.dim() < k or tuple(src.shape[src.dim() - k:]) != to.shape:
+            from .errors import DomainMismatch
+            raise DomainMismatch(f"cannot cast shape {tuple(src.shape)} "
+                                 f"to struct type {to.name}{to.shape}")
+        return src if src.dtype == dt else src.to(dt)
     if src.dtype == dt:
         return src
     if to.is_bool:

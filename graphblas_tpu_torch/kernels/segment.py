@@ -194,11 +194,15 @@ def full_reduce(vals: torch.Tensor, monoid: Monoid, dtype=None
     """Reduce a whole array under a monoid (GrB_reduce to scalar); returns
     a 0-d tensor."""
     ty = T.lookup(dtype) if dtype is not None else T.lookup(vals.dtype)
-    vals = T.cast(vals.reshape(-1), ty)
+    vals = T.cast(vals.reshape((-1,) + ty.shape), ty)
     ident = monoid.identity_tensor(ty, vals.device)
     if vals.shape[0] == 0:
         return ident
     name = monoid.op.name
+    if ty.is_struct:
+        seg = torch.zeros(vals.shape[0], dtype=torch.int64,
+                          device=vals.device)
+        return segment_reduce(vals, seg, 1, monoid)[0]
     if T.wide_unsigned(ty) and name in ("GrB_PLUS", "GrB_TIMES", "GrB_MIN",
                                         "GrB_MAX", "GxB_ANY"):
         seg = torch.zeros(vals.shape[0], dtype=torch.int64,

@@ -49,8 +49,8 @@ def _dedup(sorted_vals, gid, ng: int, dup: BinaryOp, is_first, is_last):
     """Combine duplicate groups under the dup operator (builder step 5)."""
     if dup.name in ("GrB_FIRST", "GrB_SECOND", "GxB_ANY"):
         keep = is_first if dup.name == "GrB_FIRST" else is_last
-        out = torch.zeros(ng, dtype=sorted_vals.dtype,
-                          device=sorted_vals.device)
+        out = torch.zeros((ng,) + tuple(sorted_vals.shape[1:]),
+                          dtype=sorted_vals.dtype, device=sorted_vals.device)
         T.bits(out)[gid[keep]] = T.bits(sorted_vals)[keep]
         return out
     mon = _DUP_MONOIDS.get(dup.name) or M.monoid(dup, 0)
@@ -79,15 +79,12 @@ def build_matrix(cls, rows, cols, vals, shape, dtype, dup, orient, iso,
         arr = np.asarray(vals)
         v = _as_tensor(arr if arr.dtype.kind in "biufc"
                        else arr.astype(np.float64), device=device)
-    v = v.reshape(-1)
     if dt is None:
         dt = T.lookup(v.dtype)
-    v = T.cast(v, dt)
-    if iso:
-        scal = v[:1]
-        v = scal.expand(n)
-    elif v.shape[0] == 1 and n > 1:
-        v = v.expand(n)
+    fs = dt.shape                       # a struct's field dims
+    v = T.cast(v.reshape((-1,) + fs), dt)
+    if iso or (v.shape[0] == 1 and n > 1):
+        v = v[:1].expand((n,) + fs)
     if v.shape[0] != n:
         raise E.DimensionMismatch("build: index/value length mismatch")
     if n:

@@ -336,7 +336,7 @@ def _mxm_dense(A, B, sr, zt, relabel=_ident_relabel) -> Matrix:
     CFG.burble("mxm dense: generic broadcast-reduce")
     ident = sr.add.identity_tensor(zt, dev)
     chunk = max(1, min(k, (1 << 22) // max(1, m * max(n, 1))))
-    acc = ident.expand(m, n).clone()
+    acc = ident.expand((m, n) + zt.shape).clone()
     pres = torch.zeros((m, n), dtype=torch.bool, device=dev)
     for k0 in range(0, k, chunk):
         k1 = min(k, k0 + chunk)
@@ -364,12 +364,13 @@ def _mxm_dense(A, B, sr, zt, relabel=_ident_relabel) -> Matrix:
 
 def _reduce_axis1(prod, add, zt):
     """Reduce axis 1 of a (m, k, n) product block under the add monoid."""
-    m, kc, n = prod.shape
+    m, kc, n = prod.shape[:3]
+    fs = tuple(prod.shape[3:])          # a struct's field dims
     seg = torch.arange(m * n, device=prod.device).reshape(m, 1, n) \
         .expand(m, kc, n).reshape(-1)
-    flat = prod.reshape(-1)
+    flat = prod.reshape((-1,) + fs)
     return K.segment_reduce(flat, seg, m * n, add,
-                            indices_are_sorted=False).reshape(m, n)
+                            indices_are_sorted=False).reshape((m, n) + fs)
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,8 @@ def reduce_to_vector(A: Matrix, mon: Monoid, *, C=None, mask=None,
         m, n = A.shape
         rows = torch.arange(m, device=A.device).repeat_interleave(n)
         keep = p.reshape(-1)
-        out = K.segment_reduce(T.take(v.reshape(-1), keep), rows[keep], m,
-                               mon)
+        out = K.segment_reduce(T.take(v.reshape((-1,) + dt.shape), keep),
+                               rows[keep], m, mon)
         present = p.any(dim=1)
     else:
         S = A.to_format(SPARSE) if A.fmt == HYPER else A
@@ -41,7 +41,9 @@ def reduce_to_vector(A: Matrix, mon: Monoid, *, C=None, mask=None,
                                indices_are_sorted=S.orient == ROW)
         present = torch.zeros(A.nrows, dtype=torch.bool, device=A.device)
         present[rows.long()] = True
-    Tm = Vector.from_dense_masked(T.where(present, out, zero), present)
+    Tm = Vector((A.nrows, 1), dt, BITMAP,
+                values=T.where(present, out, zero)[:, None],
+                bitmap=present[:, None])
     return writeback(C, mask, accum, Tm, desc, out_dtype, out_class=Vector)
 
 

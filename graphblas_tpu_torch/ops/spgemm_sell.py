@@ -104,6 +104,8 @@ def ineligible(sr, zt, n: int):
         return "kernels disabled"
     if sr.mult.positional:
         return "positional multiply"
+    if zt.is_struct:
+        return f"struct type {zt.name}"
     if n >= (1 << 31) - 1:
         return "n beyond int32 columns"
     if zt.np_dtype not in KDT and not (zt.np_dtype == np.int64

@@ -20,7 +20,7 @@ def logical_transpose(a: Matrix) -> Matrix:
     if a.fmt in (SPARSE, HYPER):
         flip = ROW if a.orient == COL else COL
         return _clone(a, orient=flip, shape=new_shape)
-    vals = a.values if a.iso else a.values.T
+    vals = a.values if a.iso else a.values.transpose(0, 1)
     bm = a.bitmap.T if a.fmt == BITMAP else None
     return _clone(a, values=vals, bitmap=bm, shape=new_shape)
 

@@ -540,3 +540,59 @@ def test_wait_on_card_matches_cpu(cuda_device, fmt, dtype):
             if y is not None:
                 assert y.device.type == "cuda"
                 assert torch.equal(_raw(y.cpu()), _raw(x))
+
+
+def _same_on_card(cpu, card):
+    """A port object computed on the CPU and on the card: the same class
+    and metadata, every tensor on the card and bitwise equal."""
+    assert type(cpu) is type(card)
+    assert (cpu.shape, cpu.dtype, cpu.fmt, cpu.orient, cpu.iso) == \
+        (card.shape, card.dtype, card.fmt, card.orient, card.iso)
+    for f in ("indptr", "h", "indices", "values", "bitmap"):
+        x, y = getattr(cpu, f), getattr(card, f)
+        assert (x is None) == (y is None), f
+        if y is not None:
+            assert y.device.type == "cuda", f
+            assert torch.equal(_raw(y.cpu()), _raw(x)), f
+
+
+@pytest.mark.parametrize("fmt", ["sparse", "bitmap"])
+@pytest.mark.parametrize("dtype", [np.float32, np.uint64])
+def test_op_layer_on_card_matches_cpu(cuda_device, fmt, dtype):
+    """extract (unique and repeated indices), subassign under a mask with
+    an accum, assign under a global mask, C<M> = x, kron, split/concat,
+    sort by GT, reshape, resize and diag on the card equal the CPU's,
+    bitwise (UINT64 values on both sides of 2^63: the card moves them
+    through the signed views)."""
+    import graphblas_tpu_torch as gt
+    ops = gt.operators
+    rng = np.random.default_rng(37)
+    n = 400
+    S = sps.random(n, n, 0.03, random_state=rng, format="csr")
+    S.data = rng.integers(1, 255, S.nnz).astype(dtype)
+    if dtype == np.uint64:
+        S.data[::3] += np.uint64(2 ** 63)
+    Mv = S.copy()
+    Mv.data = rng.random(S.nnz) < 0.5          # explicit false values
+    I = np.sort(rng.choice(n, 150, replace=False))
+    J = np.sort(rng.choice(n, 120, replace=False))
+    Ir = rng.integers(0, n, 90)
+    big = dtype(2 ** 64 - 7) if dtype == np.uint64 else dtype(7.5)
+    out = []
+    for dev in ("cpu", "cuda"):
+        A = gt.Matrix.from_scipy(S, device=dev).to_format(fmt)
+        M = gt.Matrix.from_scipy(Mv, device=dev)
+        R = gt.extract(A, I, J)
+        Mr = gt.extract(M, I, J)
+        res = [R, gt.extract(A, Ir, Ir[::-1]),
+               gt.subassign(A.dup(), R, I, J, mask=Mr, accum=ops.PLUS),
+               gt.assign(A.dup(), R, I, J, mask=M),
+               gt.assign(A.to_format("sparse"), big, mask=M),
+               gt.kronecker(R, gt.extract(A, I[:9], J[:7]), ops.TIMES),
+               gt.concat(gt.split(A, [150, 250], [100, 100, 200])),
+               *gt.sort(A, ops.GT), A.reshape(200, 800),
+               gt.diag(gt.vector_diag(A, 1), -2)]
+        A.resize(n + 20, n - 30)
+        out.append(res + [A])
+    for cpu, card in zip(*out):
+        _same_on_card(cpu, card)

@@ -38,13 +38,17 @@ def _np(a):
 
 
 def to_port(M, device="cpu"):
-    """The port's copy of a JAX Matrix/Vector, built from its arrays."""
+    """The port's copy of a JAX Matrix/Vector/Scalar, built from its
+    arrays (a struct type with its field dims)."""
     args = (M.dtype.name, M.fmt, _np(M.indptr), _np(M.h),
             _np(M.indices), _np(M.values), _np(M.bitmap), M.iso)
+    kw = dict(device=device, field_shape=M.dtype.shape)
     if isinstance(M, gb.Vector):
-        return interop.vector_from_arrays(M.nrows, *args, device=device)
+        return interop.vector_from_arrays(M.nrows, *args, **kw)
+    if isinstance(M, gb.Scalar):
+        return interop.scalar_from_arrays(*args, **kw)
     return interop.matrix_from_arrays(M.shape, M.dtype.name, M.fmt,
-                                      M.orient, *args[2:], device=device)
+                                      M.orient, *args[2:], **kw)
 
 
 def dense_jax(M):
@@ -71,6 +75,24 @@ def assert_same(Mj, Mt, rtol=0.0, scale_tol=None):
         bound = scale_tol * float(np.abs(a).max(initial=0.0))
         assert float(np.abs(a.astype(np.float64) - b).max(initial=0.0)) \
             <= bound
+
+
+def mask_pair(rng, shape, which, explicit_false=True):
+    """(JAX, port) BOOL mask; with ``explicit_false`` about half of its
+    stored values are false, else all are true."""
+    Mj, _ = typed_pair(rng, shape, 0.4, np.bool_, which=which)
+    if not explicit_false:
+        Mj = gb.apply(Mj, gb.operators.ONE)
+    return Mj, to_port(Mj)
+
+
+def assert_dense(Mt, v, p):
+    """The port's result equals the numpy (values, present) pair
+    bitwise."""
+    vt, pt = dense_port(Mt)
+    assert vt.shape == v.shape
+    np.testing.assert_array_equal(pt, p)
+    np.testing.assert_array_equal(vt[pt], v[p])
 
 
 def random_csr(rng, m, n, density, dtype=np.float32, integer=False):
@@ -160,6 +182,44 @@ def tc_scipy(S):
     return int((L @ L.T).multiply(L).sum())
 
 
+def typed_values(rng, n, dt):
+    """``n`` distinct-enough values of numpy dtype ``dt``: the whole range
+    for integers (UINT64 on both sides of 2^63), normal for floats,
+    (normal + i normal) for complex, random for bool."""
+    dt = np.dtype(dt)
+    if dt == np.bool_:
+        return rng.random(n) < 0.5
+    if dt.kind == "c":
+        return (rng.standard_normal(n)
+                + 1j * rng.standard_normal(n)).astype(dt)
+    if dt.kind == "f":
+        return rng.standard_normal(n).astype(dt)
+    info = np.iinfo(dt)
+    return rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+
+
+def typed_pair(rng, shape, density, dt=np.float64, fmt="sparse",
+               orient="row", which=0, klass=None):
+    """(JAX Matrix, port Matrix) of one random matrix: the pattern is
+    fixed by ``which`` (so the JAX package compiles its shape-specialised
+    code once a pattern), values of dtype ``dt`` from ``rng``; ``fmt``
+    FULL fills every entry.  ``klass=gb.Vector`` gives Vectors."""
+    m, n = shape
+    prng = np.random.default_rng(1000 + which)
+    k = m * n if fmt == "full" else max(1, int(round(m * n * density)))
+    flat = np.sort(prng.choice(m * n, k, replace=False))
+    r, c = flat // n, flat % n
+    v = typed_values(rng, k, dt)
+    if klass is gb.Vector:
+        A = gb.Vector.from_coo(r, v, m, dtype=dt)
+        A = A.to_format(fmt)
+    else:
+        A = gb.Matrix.from_coo(r, c, v, shape, dtype=dt, orient=orient)
+        A = A.to_format(fmt, orient)
+    return A, to_port(A)
+
+
 __all__ = ["gt", "gb", "cpu_default", "xla_path", "to_port", "dense_jax", "dense_port",
            "assert_same", "random_csr", "pair", "vec_pair", "sparse_operand",
-           "wide_operands", "tc_graph", "tc_scipy"]
+           "wide_operands", "tc_graph", "tc_scipy", "typed_values",
+           "typed_pair", "assert_dense", "mask_pair"]
