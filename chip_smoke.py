@@ -1759,14 +1759,12 @@ def op_layer_path(S, card):
     del K, Gt, Sd, G
     part("kron")
     # split into 2x2 and 3x3 uneven tiles, concat back: bitwise A
-    for name, rs in (("split_concat_2x2", [n // 2, n - n // 2]),
-                     ("split_concat_3x3",
-                      [n // 5, n // 2, n - n // 5 - n // 2])):
-        tiles = step(name.replace("concat", "only"),
-                     lambda: gt.split(A, rs, rs))
-        C = step(name, lambda: gt.concat(tiles))
+    for grid, rs in (("2x2", [n // 2, n - n // 2]),
+                     ("3x3", [n // 5, n // 2, n - n // 5 - n // 2])):
+        tiles = step(f"split_{grid}", lambda: gt.split(A, rs, rs))
+        C = step(f"concat_{grid}", lambda: gt.concat(tiles))
         assert all(torch.equal(getattr(C, f), getattr(A, f))
-                   for f in ("indptr", "indices", "values")), name
+                   for f in ("indptr", "indices", "values")), grid
         del tiles, C
     part("concat")
     # diag of the out-degree, vector_diag of A + diag(d)
