@@ -105,7 +105,19 @@ Phases, each printing one line (more for the per-graph phases):
      values (build with a user dup, eWise, reduce), serialize /
      deserialize (none, zlib, gbz) and from_mtx (an RMAT-16 file); each
      step's wall cold and warm, one warm extract and one warm subassign
-     traced, the K1-K9 launches during the phase.
+     traced, the K1-K9 launches during the phase;
+ 16. the distributed tier (graphblas_tpu_torch.parallel) on a
+     world-size-1 NCCL group in this process: at graph (b) from_matrix,
+     dist_mxv plus-times fp32 before the shard has a plan (bitwise K2 on
+     the whole CSR), min-plus (K3, exact), fp64 (K4, 1e-12 * max|y|),
+     with mask + accum and a complemented mask, dist_vxm (1e-5 * max|y|
+     of scipy), dist_reduce_scalar, dist_bfs_levels from the hub (exact),
+     dist_pagerank 20 steps (1e-4), the 1x1 dist_mxv_2d (bitwise K2) and
+     a save_sharded / load_sharded round trip; at graph (a) dist_mxm A*A
+     (SELL, K5: cnnz 268,406,919, sampled rows exact); then
+     dryrun_multichip(1), one spawned NCCL rank.  Walls cold and warm, a
+     warm dist_mxv and dist_pagerank traced (idle share, NCCL kernels'
+     device time), the K1-K9 launches during the phase (K2-K5 > 0).
 The two lines before the last are the card (nvidia-smi) and one JSON
 object describing the kernels of the main paths (K7 and K8 at 32768, which
 no path runs, print their checks and times in phases 3 and 12 only); the
@@ -1903,6 +1915,211 @@ def op_layer_path(S, card):
               f"{k}={v:.1f}" for k, v in parts.items()), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 16. the distributed tier: a world-size-1 NCCL group at full size
+# ---------------------------------------------------------------------------
+
+def traced_nccl(fn):
+    """One call of fn under torch.profiler: (wall s, device busy s, NCCL
+    kernels' device ms and launches, top device operations)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    dev = [e for e in prof.events() if _on_device(e)]
+    busy = _busy_s(dev)
+    assert 0 < busy <= wall, (busy, wall)
+    nccl = [e for e in dev if "nccl" in e.name.lower()]
+    nccl_ms = sum(e.time_range.end - e.time_range.start for e in nccl) / 1e3
+    kern = sorted((e for e in prof.key_averages() if _on_device(e)
+                   and _dev_us(e) > 0), key=lambda e: -_dev_us(e))
+    top = ", ".join(f"{e.key[:40]} {_dev_us(e) / 1e3:.2f} ms x{e.count}"
+                    for e in kern[:4])
+    return wall, busy, (nccl_ms, len(nccl)), top
+
+
+def min_plus_ref(S, x):
+    """y_i = min over row i of (x_k + a_ik) in fp32 on the host, +inf for
+    an empty row."""
+    y = np.full(S.shape[0], np.inf, np.float32)
+    has = np.diff(S.indptr) > 0
+    y[has] = np.minimum.reduceat(x[S.indices] + S.data,
+                                 S.indptr[:-1][has])
+    return y
+
+
+def dist_path(S, card):
+    """Phase 16: the distributed tier (graphblas_tpu_torch.parallel) on a
+    world-size-1 NCCL group started in this process (launch.init with a
+    file rendezvous, device_id cuda:0), torn down at the end.  At graph
+    (b): from_matrix; dist_mxv plus-times fp32 before the shard has a
+    plan (bitwise K2 on the whole CSR), min-plus (K3, builds the plan;
+    exact against the host), fp64 (K4; 1e-12 * max|y| of scipy's fp64),
+    with mask + accum and with a complemented mask (K1, 1e-5 * max|y|);
+    dist_vxm plus-times against scipy S' x (1e-5 * max|y|);
+    dist_reduce_scalar (the nnz, exact); dist_bfs_levels from the hub
+    (exact against scipy); dist_pagerank 20 steps (1e-4 of fp64 numpy);
+    the 1x1 dist_mxv_2d (bitwise K2); save_sharded / load_sharded (the
+    arrays equal).  At graph (a): dist_mxm A*A (SELL, K5; cnnz
+    268,406,919, 4096 sampled rows exact, fp64 checksum).  Then
+    dryrun_multichip(1): one spawned NCCL rank.  Each step's wall cold
+    and warm, one warm dist_pagerank and one warm dist_mxv traced (idle
+    share, NCCL kernels' device time), the K1-K9 launches during the
+    phase (K2, K3, K4 and K5 each > 0)."""
+    import os
+    import shutil
+    import tempfile
+
+    import scipy.sparse.csgraph as csg
+    import torch
+
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch import parallel as par
+    from graphblas_tpu_torch.core import semiring as SR
+    from graphblas_tpu_torch.entry import dryrun_multichip
+    from graphblas_tpu_torch.kernels import spmv_onehot as OH
+    from graphblas_tpu_torch.parallel import launch
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(16)
+    n = S.shape[0]
+    walls, parts, info = {}, {}, {}
+    t_part = [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def step(name, fn):
+        out, walls[name + "_cold"], walls[name + "_warm"] = two_walls(fn)
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="gbt_phase16_")
+    dev = launch.init(0, 1, "cuda:0", "file://" + os.path.join(tmp, "rdzv"))
+    info["backend"] = torch.distributed.get_backend()
+    assert info["backend"] == "nccl" and dev == torch.device("cuda", 0)
+    mesh = par.make_mesh(1)
+    A = gt.Matrix.from_scipy(S, device="cuda")
+    x = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+    xa = np.abs(x)
+    xt = torch.from_numpy(x).cuda()
+    S64 = S.astype(np.float64)
+    part("setup")
+    reset_kernel_launches()
+    D = step("from_matrix", lambda: par.DistMatrix.from_matrix(A, mesh))
+    y = step("mxv_f32", lambda: par.dist_mxv(D, xt))
+    part("mxv_f32")
+    n0 = OH.launches                       # the comparison's K2 is not
+    k2 = OH.spmv(A.indptr, A.indices, A.values, xt, n)       # the path's
+    OH.launches = n0
+    assert torch.equal(y, k2), "dist_mxv != K2 on the whole CSR"
+    ymin = step("mxv_min_plus", lambda: par.dist_mxv(D, xa, SR.MIN_PLUS))
+    assert np.array_equal(ymin.cpu().numpy(), min_plus_ref(S, xa)), \
+        "dist_mxv min-plus"
+    x64 = x.astype(np.float64)
+    y64 = step("mxv_f64", lambda: par.dist_mxv(D, x64))
+    ref = S64 @ x64
+    err64 = float(np.abs(y64.cpu().numpy() - ref).max())
+    assert y64.dtype == torch.float64 and \
+        err64 <= FP64_TOL * np.abs(ref).max(), err64
+    info["mxv_f64_err"] = err64
+    c = rng.standard_normal(n).astype(np.float32)
+    m = rng.random(n) < 0.5
+    ym = step("mxv_mask_accum", lambda: par.dist_mxv(
+        D, xt, mask=m, accum=gt.operators.PLUS, c=c))
+    want = np.where(m, c + ref, c)
+    info["mask_accum_err"] = float(np.abs(ym.cpu().numpy() - want).max())
+    assert info["mask_accum_err"] <= FP32_TOL * np.abs(want).max()
+    yc = step("mxv_complement", lambda: par.dist_mxv(
+        D, xt, mask=m, c=c, mask_complement=True))
+    want = np.where(~m, ref, c)
+    info["complement_err"] = float(np.abs(yc.cpu().numpy() - want).max())
+    assert info["complement_err"] <= FP32_TOL * np.abs(want).max()
+    part("mxv")
+    w = step("vxm_f32", lambda: par.dist_vxm(D, xt))
+    wref = S64.T @ x64
+    info["vxm_err"] = float(np.abs(w.cpu().numpy() - wref).max())
+    assert info["vxm_err"] <= FP32_TOL * np.abs(wref).max()
+    tot = step("reduce_scalar", lambda: par.dist_reduce_scalar(D))
+    assert tot.dim() == 0 and float(tot) == S.nnz, float(tot)
+    part("vxm_reduce")
+    src = int(np.argmax(np.diff(S.indptr)))
+    lv = step("bfs_levels", lambda: par.dist_bfs_levels(D, src))
+    lref = csg.dijkstra(S, indices=src, unweighted=True)
+    reach = np.isfinite(lref)
+    assert np.array_equal(lv.cpu().numpy(), np.where(
+        reach, lref, -1).astype(np.int32)), "dist_bfs_levels"
+    info["bfs_reached"], info["bfs_depth"] = int(reach.sum()), \
+        int(lref[reach].max())
+    part("bfs")
+    r = step("pagerank_20", lambda: par.dist_pagerank(D, tol=0.0,
+                                                      max_iter=20))
+    info["pagerank_relerr"] = relerr(r.cpu().numpy(), pagerank_ref(S))
+    assert info["pagerank_relerr"] <= RELERR_GUARD, info
+    part("pagerank")
+    mesh2 = par.make_mesh_2d(1, 1)
+    D2 = step("from_matrix_2d",
+              lambda: par.DistMatrix2D.from_matrix(A, mesh2))
+    y2 = step("mxv_2d", lambda: par.dist_mxv_2d(D2, xt))
+    assert torch.equal(y2, k2), "dist_mxv_2d != K2 on the whole CSR"
+    del D2
+    part("mxv_2d")
+    ck = os.path.join(tmp, "ckpt")
+    walls["save_sharded"] = timed(lambda: par.save_sharded(D, ck))[1]
+    D3, walls["load_sharded"] = timed(lambda: par.load_sharded(ck, mesh))
+    assert D3.nnz == D.nnz and D3.shape == D.shape and all(
+        torch.equal(getattr(D3, f), getattr(D, f))
+        for f in ("indptr", "indices", "values")), "checkpoint"
+    info["ckpt_MB"] = sum(os.path.getsize(os.path.join(ck, f))
+                          for f in os.listdir(ck)) / 1e6
+    del D3
+    part("checkpoint")
+    # one warm dist_mxv (K1: the plan exists now) and dist_pagerank traced
+    tr = {"dist_mxv": traced_nccl(lambda: par.dist_mxv(D, xt)),
+          "dist_pagerank_20": traced_nccl(lambda: par.dist_pagerank(
+              D, tol=0.0, max_iter=20))}
+    part("trace")
+    del D, A, y, k2
+    # graph (a): dist_mxm A*A on SELL
+    Sa = bench_graph()
+    Aa = gt.Matrix.from_scipy(Sa, device="cuda")
+    Da = par.DistMatrix.from_matrix(Aa, mesh)
+    part("graph_a")
+    DC, walls["mxm_a_cold"] = timed(lambda: par.dist_mxm(Da, Da))
+    C = gt.Matrix(Sa.shape, DC.values.dtype, gt.SPARSE, gt.ROW,
+                  indptr=DC.indptr, indices=DC.indices[:DC.nnz],
+                  values=DC.values[:DC.nnz])
+    info["mxm_checksum"] = check_product(C, Sa, rng, UNIFORM_CNNZ,
+                                         "dist_mxm A*A")
+    del C, DC
+    DC, walls["mxm_a_warm"] = timed(lambda: par.dist_mxm(Da, Da))
+    assert DC.nnz == UNIFORM_CNNZ
+    del DC, Da, Aa
+    part("mxm_a")
+    launches = kernel_launches()
+    assert all(launches[k] > 0 for k in ("K2", "K3", "K4", "K5")), launches
+    launch.shutdown()
+    shutil.rmtree(tmp)
+    _, walls["dryrun_multichip_1"] = timed(lambda: dryrun_multichip(1))
+    part("dryrun")
+    print(f"[16 dist] {card} | world size 1, NCCL, graph (b) RMAT-20 n={n} "
+          f"nnz={S.nnz}, dist_mxm at graph (a) | dist_mxv fp32 bitwise K2, "
+          f"min-plus exact, dist_mxv_2d bitwise K2, BFS exact, checkpoint "
+          f"equal, cnnz {UNIFORM_CNNZ} sampled rows exact | "
+          + " ".join(f"{k}={v}" for k, v in info.items())
+          + " | walls s: " + " ".join(f"{k}={v:.4f}" for k, v in
+                                     walls.items())
+          + " | traced warm: " + "; ".join(
+              f"{k} wall {w_:.4f} s, device busy {b_:.4f} s (idle "
+              f"{1 - b_ / w_:.1%}), NCCL kernels {nc[0]:.3f} ms x{nc[1]}, "
+              f"top {t_}" for k, (w_, b_, nc, t_) in tr.items())
+          + f" | K1-K9 launches during the phase: {launches} | phase "
+          f"{time.perf_counter() - t_phase:.1f} s, by part (checks and "
+          f"host references included): " + " ".join(
+              f"{k}={v:.1f}" for k, v in parts.items()), flush=True)
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2025,6 +2242,8 @@ def main():
     ewise_path(graph_b, card)
     # 15. the rest of the op layer and the operator sugar
     op_layer_path(graph_b, card)
+    # 16. the distributed tier on a world-size-1 NCCL group
+    dist_path(graph_b, card)
     # result lines
     print(card_line())
     print(json.dumps({"kernels": [

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (SpMV K1-K4, sort-reduce K5-K8 at every C, the
 gather-permute K9) against their plain torch versions, the fast SpGEMM
-tier on K5/K6 against scipy, and the union merge and wait() against the
-CPU's results, on a card.
+tier on K5/K6 against scipy, the union merge, wait() and the distributed
+tier (a world-size-1 NCCL group) against the CPU's results, on a card.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -24,6 +24,7 @@ from graphblas_tpu_torch.kernels import sortreduce as SRD
 from graphblas_tpu_torch.kernels import spmv_onehot as OH
 from graphblas_tpu_torch.kernels import spmv_route as SPR
 from graphblas_tpu_torch.kernels import static_route as STR
+from graphblas_tpu_torch.parallel import testing as PD
 
 pytestmark = pytest.mark.cuda
 
@@ -596,3 +597,77 @@ def test_op_layer_on_card_matches_cpu(cuda_device, fmt, dtype):
         out.append(res + [A])
     for cpu, card in zip(*out):
         _same_on_card(cpu, card)
+
+
+# ---------------------------------------------------------------------------
+# the distributed tier on the card: a world-size-1 NCCL group
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_group(tmp_path_factory):
+    """A world-size-1 NCCL group in this process (the card is one rank)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL has no CPU mode")
+    from graphblas_tpu_torch.parallel import launch
+    path = tmp_path_factory.mktemp("nccl") / "rendezvous"
+    launch.init(0, 1, "cuda:0", f"file://{path}")
+    yield
+    launch.shutdown()
+
+
+# the shared fp32 DistMatrix walks K2, K3 (building the plan), K3, K1, K4
+DIST_ON_CARD = [*PD.SHARED_F32, "mxv_f64", "min_plus_f64", "ring_min_plus",
+                "mask_accum", "vxm", "bfs", "pagerank", "u64_vxm_min",
+                "mxv_2d_f32"]
+
+
+def test_dist_on_card_matches_cpu(nccl_group):
+    """dist_mxv on each kernel tier (plus-times, min-plus with empty rows,
+    max-second, fp64), vxm, BFS, PageRank, UINT64 min-plus vxm and the
+    1x1 2-D mxv on the card's NCCL rank against the same cases on one gloo
+    rank on the CPU (the kernels' plain versions): the same tiers; min/max,
+    ints and levels exact, fp32 sums within 1e-5 * max|y|, fp64 within
+    1e-12 * max|y|."""
+    from graphblas_tpu_torch.parallel import launch
+    card = PD.rank_main(0, 1, torch.device("cuda", 0), DIST_ON_CARD)
+    cpu = launch.spawn(PD.rank_main, 1, "cpu", DIST_ON_CARD)[0]
+    assert card["tiers"] == cpu["tiers"]
+    assert card["tiers"]["mxv_f32"] == ["merge"]
+    assert card["tiers"]["min_plus_f32"] == ["route_monoid min_plus"]
+    assert card["tiers"]["mxv_f32_planned"] == ["route"]
+    assert card["tiers"]["mxv_f32_to_f64"] == ["route_ds"]
+    cases = {**PD.spmv_cases(), **PD.mxm_cases(1)}
+    for name in DIST_ON_CARD:
+        got, want = card[name], cpu[name]
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        sr = cases[name].get("sr")
+        if got.dtype.kind in "biu" or (isinstance(sr, tuple)
+                                       and sr[0] in ("MIN", "MAX")):
+            np.testing.assert_array_equal(got, want, err_msg=name)
+            continue
+        tol = 1e-5 if got.dtype == np.float32 else 1e-12
+        assert np.abs(got.astype(np.float64) - want).max() <= \
+            tol * np.abs(want).max(), name
+    empty = np.diff(cases["min_plus_f32"]["S"].indptr) == 0
+    assert empty.any() and np.all(card["min_plus_f32"][empty] == np.inf)
+
+
+def test_dist_mxm_on_card_matches_mxm(nccl_group):
+    """dist_mxm on the card's rank is the port's mxm of the rank's rows
+    (SELL, K5): bitwise the mxm of the whole operands."""
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch import parallel as par
+    case = PD.mxm_cases(1)["mxm_f32"]
+    A = gt.Matrix.from_scipy(case["S"], device="cuda")
+    B = gt.Matrix.from_scipy(case["B"], device="cuda")
+    mesh = par.make_mesh(1)
+    DA = par.DistMatrix.from_matrix(A, mesh)
+    DB = par.DistMatrix.from_matrix(B, mesh)
+    k5 = SRD.launches["sort_reduce_rows"]
+    DC = par.dist_mxm(DA, DB)
+    assert SRD.launches["sort_reduce_rows"] > k5
+    C = gt.mxm(A, B, gt.semiring.PLUS_TIMES)
+    assert DC.nnz == C.nvals
+    assert torch.equal(DC.indptr, C.indptr)
+    assert torch.equal(DC.indices[:DC.nnz], C.indices)
+    assert torch.equal(DC.values[:DC.nnz], C.values)
