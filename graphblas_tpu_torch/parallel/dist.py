@@ -56,7 +56,7 @@ from ..core import config as CFG
 from ..core import monoid as MON
 from ..core import semiring as SR
 from ..core import types as T
-from ..core.matrix import ROW, SPARSE, Matrix
+from ..core.matrix import ROW, SPARSE, Matrix, _as_tensor
 from ..core.semiring import Semiring
 from ..kernels import segment as K
 from ..kernels import spmv_onehot, spmv_route
@@ -340,13 +340,7 @@ def _local_vxm_partial(sh: _Shard, xloc, row0: int, n_pad: int,
 def _vec(x, device) -> torch.Tensor:
     """A dense vector argument (numpy, list or tensor) as a 1-D tensor on
     ``device``."""
-    if isinstance(x, torch.Tensor):
-        return x.reshape(-1).to(device)
-    a = np.ascontiguousarray(np.asarray(x).reshape(-1))
-    if a.dtype.kind == "u" and a.dtype.itemsize > 1:
-        s = torch.from_numpy(a.view(f"i{a.dtype.itemsize}"))
-        return T.unbits(s, T.lookup(a.dtype).torch_dtype).to(device)
-    return torch.from_numpy(a).to(device)
+    return _as_tensor(x, device=device).reshape(-1)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
