@@ -1919,23 +1919,27 @@ def op_layer_path(S, card):
 # 16. the distributed tier: a world-size-1 NCCL group at full size
 # ---------------------------------------------------------------------------
 
-def traced_nccl(fn):
-    """One call of fn under torch.profiler: (wall s, device busy s, NCCL
-    kernels' device ms and launches, top device operations)."""
+def traced_nccl(fn, calls=1):
+    """``calls`` calls of fn back to back under torch.profiler, per call:
+    (wall s, device busy s, NCCL kernels' device ms and launches, top
+    device operations).  Busy is None (not measured) when the profiler
+    returned no device event, as it once did for a single dist_mxv (0.2
+    ms of kernels) late in a full run."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(fn)
+        _, wall = timed(lambda: [fn() for _ in range(calls)])
     dev = [e for e in prof.events() if _on_device(e)]
     busy = _busy_s(dev)
-    assert 0 < busy <= wall, (busy, wall)
+    assert busy <= wall, (busy, wall)
     nccl = [e for e in dev if "nccl" in e.name.lower()]
     nccl_ms = sum(e.time_range.end - e.time_range.start for e in nccl) / 1e3
     kern = sorted((e for e in prof.key_averages() if _on_device(e)
                    and _dev_us(e) > 0), key=lambda e: -_dev_us(e))
-    top = ", ".join(f"{e.key[:40]} {_dev_us(e) / 1e3:.2f} ms x{e.count}"
-                    for e in kern[:4])
-    return wall, busy, (nccl_ms, len(nccl)), top
+    top = ", ".join(f"{e.key[:40]} {_dev_us(e) / 1e3 / calls:.3f} ms "
+                    f"x{e.count / calls:g}" for e in kern[:4])
+    return (wall / calls, busy / calls if dev else None,
+            (nccl_ms / calls, len(nccl) / calls), top)
 
 
 def min_plus_ref(S, x):
@@ -2074,8 +2078,9 @@ def dist_path(S, card):
                           for f in os.listdir(ck)) / 1e6
     del D3
     part("checkpoint")
-    # one warm dist_mxv (K1: the plan exists now) and dist_pagerank traced
-    tr = {"dist_mxv": traced_nccl(lambda: par.dist_mxv(D, xt)),
+    # warm dist_mxv (K1: the plan exists now; 10 calls, per call) and one
+    # warm dist_pagerank traced
+    tr = {"dist_mxv": traced_nccl(lambda: par.dist_mxv(D, xt), calls=10),
           "dist_pagerank_20": traced_nccl(lambda: par.dist_pagerank(
               D, tol=0.0, max_iter=20))}
     part("trace")
@@ -2109,10 +2114,13 @@ def dist_path(S, card):
           + " ".join(f"{k}={v}" for k, v in info.items())
           + " | walls s: " + " ".join(f"{k}={v:.4f}" for k, v in
                                      walls.items())
-          + " | traced warm: " + "; ".join(
-              f"{k} wall {w_:.4f} s, device busy {b_:.4f} s (idle "
-              f"{1 - b_ / w_:.1%}), NCCL kernels {nc[0]:.3f} ms x{nc[1]}, "
-              f"top {t_}" for k, (w_, b_, nc, t_) in tr.items())
+          + " | traced warm, per call: " + "; ".join(
+              f"{k} wall {w_:.5f} s, " + (
+                  f"device busy {b_:.5f} s (idle {1 - b_ / w_:.1%}), "
+                  if b_ is not None else "device busy not measured (the "
+                  "profiler returned no device event), ")
+              + f"NCCL kernels {nc[0]:.4f} ms x{nc[1]:g}, top {t_}"
+              for k, (w_, b_, nc, t_) in tr.items())
           + f" | K1-K9 launches during the phase: {launches} | phase "
           f"{time.perf_counter() - t_phase:.1f} s, by part (checks and "
           f"host references included): " + " ".join(
