@@ -82,14 +82,15 @@ def segment_reduce(vals: torch.Tensor, seg_ids: torch.Tensor,
                    num_segments: int, monoid: Monoid,
                    indices_are_sorted: bool = True) -> torch.Tensor:
     """Reduce ``vals`` (first axis) by segment under an arbitrary monoid.
-    Empty segments get the monoid identity."""
+    Empty segments get the monoid identity, but under ANY (a max from the
+    type's minimum) that minimum, an empty ``vals`` included."""
     ty = T.lookup(vals.dtype)
     ident = monoid.identity_tensor(ty, vals.device)
     tail = tuple(vals.shape[1:])
-    if vals.shape[0] == 0:
+    name = monoid.op.name
+    if vals.shape[0] == 0 and (name != "GxB_ANY" or ty.is_struct):
         return ident.expand((num_segments,) + tail).clone()
     seg = seg_ids.long()
-    name = monoid.op.name
     if T.wide_unsigned(ty):
         return _segment_reduce_unsigned(vals, seg, num_segments, monoid,
                                         ident, indices_are_sorted)

@@ -150,7 +150,9 @@ def plan_for(indptr, indices, values, shape, build=True):
     """Per-matrix cached plan.  Strong refs pin the source tensors and
     identity is re-checked on a hit.  With ``build=False`` only returns an
     already-cached plan (callers opt in through Matrix.optimize() or the
-    algorithms' ``optimize=True``)."""
+    algorithms' ``optimize=True``).  A build reuses the tiling of a plan
+    cached for the same indptr and indices under other values (the fp64
+    copy of an fp32 matrix's values, say)."""
     key = (id(indptr), id(indices), id(values), tuple(shape))
     ent = _plan_cache.get(key)
     if ent is not None and ent[0] is indptr and ent[1] is indices \
@@ -158,9 +160,11 @@ def plan_for(indptr, indices, values, shape, build=True):
         return ent[3]
     if not build:
         return None
-    p = build_plan(indptr, indices, values, shape)
-    register_plan(indptr, indices, values, shape, p)
-    return p
+    p = next((e[3] for k, e in _plan_cache.items() if e[0] is indptr
+              and e[1] is indices and k[3] == tuple(shape)), None)
+    if p is None:
+        p = build_plan(indptr, indices, values, shape)
+    return register_plan(indptr, indices, values, shape, p)
 
 
 def register_plan(indptr, indices, values, shape, plan):

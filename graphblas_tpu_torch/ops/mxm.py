@@ -13,9 +13,10 @@ formats:
   - sparse x dense   -> SpMV/SpMM.  Plus-times fp32 with at most 8
                         columns rides the hand-written SpMV kernels
                         (planned when Matrix.optimize() cached a plan,
-                        unplanned otherwise); min/max semirings ride the
-                        planned kernel when a plan is cached; everything
-                        else is a row-gather + segmented reduce in torch
+                        unplanned otherwise); the other semirings of
+                        the kernels (spmv_kernel) ride the planned ones
+                        when a plan is cached; everything else is a
+                        row-gather + segmented reduce in torch
   - sparse x sparse  -> ESC SpGEMM (expand-sort-compress): the SELL
                         engine (ops/spgemm_sell.py, sort-reduce kernels
                         K5-K8) when the semiring and type have a kernel,
@@ -42,7 +43,7 @@ from ..core.convert import _clone
 from ..core.descriptor import NULL, Descriptor
 from ..core.matrix import (BITMAP, COL, FULL, HYPER, INDEX, ROW, SPARSE,
                            Matrix, Vector)
-from ..core.semiring import Semiring
+from ..core.semiring import PLUS_TIMES, Semiring
 from ..core.types import cast
 from ..kernels import segment as K
 from ..kernels import spmv_onehot, spmv_route
@@ -52,8 +53,8 @@ from .transpose import logical_transpose, maybe_transpose
 _MATMUL_ADD = {"GrB_PLUS"}  # monoids whose dense path can ride matmul
 _MATMUL_MULT = {"GrB_TIMES"}
 
-# semiring -> planned-kernel operator names (the route monoid tier)
-_ROUTE_ADD = {"GrB_MIN": "min", "GrB_MAX": "max"}
+# semiring -> the SpMV kernels' operator names (spmv_kernel)
+_ROUTE_ADD = {"GrB_MIN": "min", "GrB_MAX": "max", "GrB_PLUS": "plus"}
 _ROUTE_MUL = {"GrB_TIMES": "times", "GrB_PLUS": "plus", "GrB_FIRST": "first",
               "GrB_SECOND": "second", "GrB_ONEB": "pair"}
 
@@ -388,38 +389,22 @@ def _spmm(A: Matrix, B: Matrix, sr, zt, relabel=_ident_relabel) -> Matrix:
             and zt == T.FP32):
         vals = cast(Ar._vals_expanded(), zt)
         bv = cast(B._vals_expanded(), zt)
-        rp = None
-        if CFG.GLOBAL.kernels_enabled:
-            rp = spmv_route.plan_for(Ar.indptr, Ar.indices, vals,
-                                     (m, B.nrows), build=False)
-        if rp is not None:
-            CFG.burble("spmm: planned spmv x%d", B.ncols)
-            y = _narrow_spmm_route(bv, rp)
-        else:
-            CFG.burble("spmm: spmv x%d", B.ncols)
-            y = torch.stack([spmv_arrays(Ar.indptr, Ar.indices, vals,
-                                         bv[:, c].contiguous(), m)
-                             for c in range(B.ncols)], dim=1)
+        CFG.burble("spmm: spmv x%d", B.ncols)
+        y = torch.stack([spmv_arrays(Ar.indptr, Ar.indices, vals,
+                                     bv[:, c].contiguous(), m)
+                         for c in range(B.ncols)], dim=1)
         # spec pattern: rows of A with no entries are absent
         pres = (torch.diff(Ar.indptr) > 0)[:, None].expand(m, B.ncols)
         return Matrix((m, B.ncols), zt, BITMAP, ROW, values=y,
                       bitmap=pres.contiguous())
-    # semiring-generic planned tier: (min|max).(plus|times|first|second|
-    # pair) fp32 SpMV when a plan is cached (Matrix.optimize)
-    route_add = _ROUTE_ADD.get(sr.add.op.name)
-    route_mul = _ROUTE_MUL.get(sr.mult.name)
-    if (B.ncols == 1 and B.fmt == FULL and route_add and route_mul
-            and not sr.mult.positional and zt == T.FP32
-            and CFG.GLOBAL.kernels_enabled):
-        vals32 = cast(Ar._vals_expanded(), zt)
-        rp = spmv_route.plan_for(Ar.indptr, Ar.indices, vals32,
-                                 (A.nrows, B.nrows), build=False)
-        if rp is not None:
-            CFG.burble("spmv: tier=route_monoid %s_%s", route_add,
-                       route_mul)
-            x = cast(B._vals_expanded(), zt)[:, 0].contiguous()
-            y = spmv_route.spmv_route_monoid(x, rp, add=route_add,
-                                             mul=route_mul)
+    # the other semirings of the SpMV kernels, on a plan cached by
+    # Matrix.optimize (spmv_kernel: K3, or K4 for fp64 plus-times)
+    if (B.ncols == 1 and B.fmt == FULL and zt in (T.FP32, T.FP64)
+            and _route_ops(sr) is not None):
+        x = cast(B._vals_expanded(), zt)[:, 0].contiguous()
+        y = spmv_kernel(Ar.indptr, Ar.indices, cast(Ar._vals_expanded(), zt),
+                        x, A.nrows, sr)
+        if y is not None:
             pres1 = (torch.diff(Ar.indptr) > 0)[:, None]
             return Matrix((A.nrows, 1), zt, BITMAP, ROW, values=y[:, None],
                           bitmap=pres1)
@@ -451,13 +436,6 @@ def _spmm(A: Matrix, B: Matrix, sr, zt, relabel=_ident_relabel) -> Matrix:
     pres = pres > 0
     return Matrix((m, n), zt, BITMAP, ROW,
                   values=T.where(pres, out, zero), bitmap=pres)
-
-
-def _narrow_spmm_route(bv, plan) -> torch.Tensor:
-    """``ncols`` planned SpMVs, one per dense column (narrow SpMM C = A*F;
-    reference workload dobench C=S*F)."""
-    return torch.stack([spmv_route.spmv_route(bv[:, c].contiguous(), plan)
-                        for c in range(bv.shape[1])], dim=1)
 
 
 def vxm_chain(u, A, sr: Semiring, steps: int):
@@ -493,34 +471,67 @@ def vxm_chain(u, A, sr: Semiring, steps: int):
     return y
 
 
-def spmv_arrays(indptr, indices, values, x, m: int) -> torch.Tensor:
-    """Raw CSR SpMV (plus-times): the hot path behind the benchmarks and
-    the fused algorithms.  Tiers, chosen by predicate only:
+def _route_ops(sr: Semiring):
+    """The SpMV kernels' (add, mul) operator names for ``sr``, or None."""
+    ops = (_ROUTE_ADD.get(sr.add.op.name), _ROUTE_MUL.get(sr.mult.name))
+    return None if None in ops else ops
 
-      * kernels on, fp32, plan cached   -> spmv_route (planned kernel)
-      * kernels on, fp32, no plan       -> spmv_onehot.spmv (merge path)
-      * kernels on, fp64, plan cached   -> spmv_route_ds (fp64 planned)
-      * otherwise                       -> gather + index_add_ in torch
-    """
-    shape = (m, int(x.shape[0]))
-    if CFG.GLOBAL.kernels_enabled and values.dtype == torch.float32:
-        rp = spmv_route.plan_for(indptr, indices, values, shape,
-                                 build=False)
-        if rp is not None:
+
+def spmv_kernel(indptr, indices, values, x, m: int, sr: Semiring,
+                build: bool = False):
+    """y = A (+).(x) x over a CSR's arrays on an SpMV kernel, in x's
+    dtype (that of ``values``); None where no kernel takes the semiring
+    and type, and the caller computes in torch.  The one tier predicate
+    of the port's SpMVs (``spmv_arrays``, ``_spmm``, the distributed
+    tier's local SpMV), with the kernels on:
+
+      * plus-times fp32: K1 (spmv_route) on a cached plan, else K2
+        (spmv_onehot.spmv), which needs none
+      * (min|max|plus).(times|plus|first|second|pair) fp32: K3
+        (spmv_route_monoid) on a plan
+      * plus-times fp64: K4 (spmv_route_ds) on a plan
+
+    Plans come from ``spmv_route.plan_for``; ``build`` builds a missing
+    one for K3 and K4 (K2 never waits for one).  Empty rows take the add
+    identity on every tier."""
+    ops = _route_ops(sr)
+    if not CFG.GLOBAL.kernels_enabled or ops is None \
+            or x.dtype != values.dtype:
+        return None
+    plus_times = ops == ("plus", "times")
+    if values.dtype == torch.float32:
+        rp = spmv_route.plan_for(indptr, indices, values,
+                                 (m, int(x.shape[0])),
+                                 build=build and not plus_times)
+        if plus_times and rp is None:
+            CFG.burble("spmv: tier=merge")
+            return spmv_onehot.spmv(indptr, indices, values, x, m)
+        if plus_times:
             CFG.burble("spmv: tier=route")
-            return spmv_route.spmv_route(x.to(torch.float32), rp)
-        CFG.burble("spmv: tier=merge")
-        return spmv_onehot.spmv(indptr, indices, values,
-                                x.to(torch.float32), m)
-    if CFG.GLOBAL.kernels_enabled and values.dtype == torch.float64:
-        rp = spmv_route.plan_for(indptr, indices, values, shape,
-                                 build=False)
+            return spmv_route.spmv_route(x, rp)
+        if rp is not None:
+            CFG.burble("spmv: tier=route_monoid %s_%s", *ops)
+            return spmv_route.spmv_route_monoid(x, rp, add=ops[0],
+                                                mul=ops[1])
+    elif values.dtype == torch.float64 and plus_times:
+        rp = spmv_route.plan_for(indptr, indices, values,
+                                 (m, int(x.shape[0])), build=build)
         if rp is not None:
             CFG.burble("spmv: tier=route_ds")
-            return spmv_route.spmv_route_ds(x.to(torch.float64), rp)
-    CFG.burble("spmv: tier=torch")
-    return spmv_onehot.spmv_plain(indptr, indices, values,
-                                  x.to(values.dtype), m)
+            return spmv_route.spmv_route_ds(x, rp)
+    return None
+
+
+def spmv_arrays(indptr, indices, values, x, m: int) -> torch.Tensor:
+    """Raw CSR SpMV (plus-times) in the values' dtype: the hot path behind
+    the benchmarks and the fused algorithms.  ``spmv_kernel``'s tiers
+    (K1, K2, K4), else a gather + index_add_ in torch."""
+    x = x.to(values.dtype)
+    y = spmv_kernel(indptr, indices, values, x, m, PLUS_TIMES)
+    if y is None:
+        CFG.burble("spmv: tier=torch")
+        y = spmv_onehot.spmv_plain(indptr, indices, values, x, m)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,12 @@ Layout, shard for shard the JAX package's:
     and ``values`` [cap] (cap = the largest shard's nnz; column 0 and
     value 0 past ``nnz``), and ``nnz``.
   * mxv: the x blocks all-gathered, then a local SpMV of the shard's
-    first nnz entries through the port's kernels where a predicate says
-    so (plus-times fp32: K2, or K1 once the shard has a plan; min / max /
-    plus with five multiplies in fp32: K3; plus-times fp64: K4), and a
-    gather + multiply + ``segment_reduce`` otherwise.  ``overlap=True``
-    rotates the x blocks around a ring instead (``ensure_ring``).
+    first nnz entries on the port's SpMV kernels by their one predicate
+    (``ops.mxm.spmv_kernel``: plus-times fp32 K2, or K1 once the shard
+    has a plan; min / max / plus with five multiplies in fp32 K3;
+    plus-times fp64 K4), and a gather + multiply + ``segment_reduce``
+    otherwise.  ``overlap=True`` rotates the x blocks around a ring
+    instead (``ensure_ring``).
   * vxm: each shard's partial over all columns, combined under the add
     monoid (``_combine_axis``); each rank keeps its slice.
   * BFS and PageRank loop on the host, one level or iteration a pass,
@@ -59,12 +60,7 @@ from ..core import types as T
 from ..core.matrix import ROW, SPARSE, Matrix, _as_tensor
 from ..core.semiring import Semiring
 from ..kernels import segment as K
-from ..kernels import spmv_onehot, spmv_route
-
-# semiring -> planned-kernel operator names (K3), as ops/mxm.py's tiers
-_ROUTE_ADD = {"GrB_MIN": "min", "GrB_MAX": "max", "GrB_PLUS": "plus"}
-_ROUTE_MUL = {"GrB_TIMES": "times", "GrB_PLUS": "plus", "GrB_FIRST": "first",
-              "GrB_SECOND": "second", "GrB_ONEB": "pair"}
+from ..ops.mxm import spmv_kernel
 
 
 # ---------------------------------------------------------------------------
@@ -210,20 +206,18 @@ def _combine_axis(partial: torch.Tensor, group, add) -> torch.Tensor:
 
 class _Shard:
     """One rank's CSR block: its first ``nnz`` entries as tensors of their
-    own (the kernels take exactly nnz entries, and plans key on these
-    tensors), their row ids, and what is built at first use: the values
-    in another float type and the merge-path plan (K1/K3/K4)."""
+    own (the kernels take exactly nnz entries, and ``spmv_route.plan_for``
+    keys the shard's plans on these tensors), and, built at first use,
+    their row ids and the values in another float type."""
 
-    def __init__(self, indptr, indices, values, nnz: int, ncols: int):
+    def __init__(self, indptr, indices, values, nnz: int):
         self.m = int(indptr.numel()) - 1
-        self.ncols = ncols
         self.indptr = indptr
         self.indices = indices[:nnz]
         self.values = values[:nnz]
         self.nnz = nnz
         self._rows = None
         self._vals = {values.dtype: self.values}
-        self._plans = {}
 
     @property
     def rows(self) -> torch.Tensor:
@@ -237,21 +231,6 @@ class _Shard:
         if v is None:
             v = self._vals[dtype] = self.values.to(dtype)
         return v
-
-    def plan(self, dtype, build: bool):
-        """The shard's merge-path plan bound to its ``dtype`` values,
-        built at first use when ``build``; None when not built."""
-        p = self._plans.get(dtype)
-        if p is None and (build or self._plans):
-            vals = self.values_as(dtype)
-            if self._plans:
-                p = next(iter(self._plans.values())).bind(
-                    self.indptr, self.indices, vals)
-            else:
-                p = spmv_route.build_plan(self.indptr, self.indices, vals,
-                                          (self.m, self.ncols))
-            self._plans[dtype] = p
-        return p
 
 
 def _positional_mxv(kind, gi, gk):
@@ -270,35 +249,21 @@ def _local_spmv(sh: _Shard, xfull, sr: Semiring, zt: T.Type, row0=0,
                 col0=0) -> torch.Tensor:
     """y_local = A_local (+).(x) xfull over the shard's first nnz entries.
 
-    Tiers by predicate, as ``ops/mxm.py``'s SpMV tiers: with the kernels
-    on and x already of the output type, plus-times fp32 runs K2 (K1 once
-    the shard has a plan), (min|max|plus) x (times|plus|first|second|pair)
-    fp32 runs K3 on the shard's plan (built at first use), and plus-times
-    fp64 runs K4 on the same tiling (the values cast to fp64: exact).
-    Everything else, positional multiplies included, gathers, multiplies
-    and reduces by row in torch.  Empty rows take the add identity on
-    every tier."""
-    add, mul = _ROUTE_ADD.get(sr.add.op.name), _ROUTE_MUL.get(sr.mult.name)
-    if (CFG.GLOBAL.kernels_enabled and not sr.mult.positional and add
-            and mul and xfull.dtype == zt.torch_dtype):
-        if zt == T.FP32 and sh.values.dtype == torch.float32:
-            if (add, mul) == ("plus", "times"):
-                p = sh.plan(torch.float32, build=False)
-                if p is not None:
-                    CFG.burble("dist spmv: tier=route")
-                    return spmv_route.spmv_route(xfull, p)
-                CFG.burble("dist spmv: tier=merge")
-                return spmv_onehot.spmv(sh.indptr, sh.indices, sh.values,
-                                        xfull, sh.m)
-            CFG.burble("dist spmv: tier=route_monoid %s_%s", add, mul)
-            return spmv_route.spmv_route_monoid(
-                xfull, sh.plan(torch.float32, build=True), add=add, mul=mul)
-        if (zt == T.FP64 and (add, mul) == ("plus", "times")
-                and sh.values.dtype in (torch.float32, torch.float64)):
-            CFG.burble("dist spmv: tier=route_ds")
-            return spmv_route.spmv_route_ds(
-                xfull, sh.plan(torch.float64, build=True))
-    CFG.burble("dist spmv: tier=torch")
+    With x already of the output type, the SpMV kernels by their one
+    predicate (``ops.mxm.spmv_kernel``): plus-times fp32 on K2 (K1 once
+    the shard has a plan), (min|max|plus) x (times|plus|first|second|
+    pair) fp32 on K3, plus-times fp64 on K4, the plans built at first use
+    (fp32 values are cast to fp64 for K4: exact).  Everything else,
+    positional multiplies included, gathers, multiplies and reduces by
+    row in torch.  Empty rows take the add identity on every tier."""
+    if xfull.dtype == zt.torch_dtype:
+        vals = sh.values_as(torch.float64) if (
+            zt == T.FP64 and sh.values.dtype == torch.float32) else sh.values
+        y = spmv_kernel(sh.indptr, sh.indices, vals, xfull, sh.m, sr,
+                        build=True)
+        if y is not None:
+            return y
+    CFG.burble("spmv: tier=torch")
     rows = sh.rows
     if sr.mult.positional:
         prod = _positional_mxv(sr.mult.positional, rows + row0,
@@ -381,7 +346,7 @@ class DistMatrix:
         self.group = mesh.get_group()
         self.rank = mesh.get_local_rank()
         self.device = indptr.device
-        self.shard = _Shard(indptr, indices, values, self.nnz, self.shape[1])
+        self.shard = _Shard(indptr, indices, values, self.nnz)
         self._ring = None
 
     @property
@@ -488,12 +453,24 @@ def _ring_spmv(A: DistMatrix, xloc, sr: Semiring, zt: T.Type):
     is issued before the current block's products, and waited on after
     them.  Each step reduces the arriving block's entries by row
     (``segment_reduce``; padding rows land in a dropped segment), and the
-    add monoid folds the steps into the rank's rows."""
+    add monoid folds the steps into the rank's rows.  ANY folds as
+    ``segment_reduce`` reduces it, by a max (its operator keeps only its
+    second operand, which would drop every step but the last), so the
+    ring gives the all-gather path's bits."""
     ridx, rval, rrow, blk_cap = A.ensure_ring()
     ndev, rp, d = A.ndev, A.rows_per, A.rank
     left = dist.get_global_rank(A.group, (d - 1) % ndev)
     right = dist.get_global_rank(A.group, (d + 1) % ndev)
-    acc = sr.add.identity_tensor(zt, A.device).expand(rp).clone()
+    if sr.add.op.name == "GxB_ANY":
+        pair = torch.arange(rp, device=A.device).repeat(2)
+
+        def fold(a, b):
+            return K.segment_reduce(torch.cat([a, b]), pair, rp, sr.add,
+                                    indices_are_sorted=False)
+    else:
+        def fold(a, b):
+            return T.cast(sr.add.op.fn(a, b), zt)
+    acc = None
     blk = xloc.contiguous()
     for k in range(ndev):
         if k < ndev - 1:
@@ -507,7 +484,7 @@ def _ring_spmv(A: DistMatrix, xloc, sr: Semiring, zt: T.Type):
         prod = T.cast(sr.mult.fn(rval[seg], T.take(blk, ridx[seg].long())),
                       zt)
         part = K.segment_reduce(prod, rrow[seg], rp + 1, sr.add)[:rp]
-        acc = T.cast(sr.add.op.fn(acc, part), zt)
+        acc = part if acc is None else fold(acc, part)
         if k < ndev - 1:
             for r in reqs:
                 r.wait()
@@ -561,9 +538,21 @@ def dist_vxm(A: DistMatrix, x, sr: Semiring = SR.PLUS_TIMES, out_dtype=None,
 
 def dist_reduce_scalar(A: DistMatrix, mon=MON.PLUS) -> torch.Tensor:
     """The monoid's total of every stored value, a 0-d tensor on every
-    rank."""
-    local = K.full_reduce(A.shard.values, mon)
-    return _combine_axis(local.reshape(1), A.group, mon)[0]
+    rank.  Under ANY (combined by a max) a rank with no entries offers
+    what ``segment_reduce`` gives an empty segment, the type's minimum,
+    not the identity 0 that would beat every negative value; a matrix
+    with no entries at all gives the identity, as ``full_reduce``."""
+    sh = A.shard
+    if mon.op.name != "GxB_ANY":
+        local = K.full_reduce(sh.values, mon)
+        return _combine_axis(local.reshape(1), A.group, mon)[0]
+    one = torch.zeros(sh.nnz, dtype=torch.int64, device=A.device)
+    local = K.segment_reduce(sh.values, one, 1, mon)
+    top = _combine_axis(local, A.group, mon)[0]
+    if not int(_all_reduce(torch.tensor([sh.nnz], device=A.device), "max",
+                           A.group)):
+        return mon.identity_tensor(T.lookup(top.dtype), A.device)
+    return top
 
 
 # ---------------------------------------------------------------------------
@@ -751,7 +740,7 @@ class DistMatrix2D:
         self.rb, self.cb = int(rb), int(cb)
         self.coord = tuple(mesh.get_coordinate())
         self.device = indptr.device
-        self.shard = _Shard(indptr, indices, values, self.nnz, self.cb)
+        self.shard = _Shard(indptr, indices, values, self.nnz)
 
     @classmethod
     def from_matrix(cls, A: Matrix, mesh: DeviceMesh) -> "DistMatrix2D":

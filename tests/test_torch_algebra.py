@@ -375,8 +375,7 @@ def test_import_brings_no_jax():
             "graphblas_tpu_torch.ops.serialize, "
             "graphblas_tpu_torch.parallel, "
             "graphblas_tpu_torch.parallel.dist, "
-            "graphblas_tpu_torch.parallel.launch, "
-            "graphblas_tpu_torch.parallel.testing; "
+            "graphblas_tpu_torch.parallel.launch; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'graphblas_tpu')); "

@@ -24,7 +24,7 @@ from graphblas_tpu_torch.kernels import sortreduce as SRD
 from graphblas_tpu_torch.kernels import spmv_onehot as OH
 from graphblas_tpu_torch.kernels import spmv_route as SPR
 from graphblas_tpu_torch.kernels import static_route as STR
-from graphblas_tpu_torch.parallel import testing as PD
+import torch_dist_cases as PD
 
 pytestmark = pytest.mark.cuda
 

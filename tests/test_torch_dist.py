@@ -11,7 +11,7 @@ import pytest
 
 import graphblas_tpu as gb
 from graphblas_tpu import parallel as jpar
-from graphblas_tpu_torch.parallel import testing as PT
+import torch_dist_cases as PT
 from torch_dist_parity import (CASES, WORLD_IDS, WORLDS, assert_matches,
                                exact, jax_spmv, port_result, spawn)
 

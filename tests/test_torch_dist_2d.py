@@ -8,7 +8,7 @@ import pytest
 import graphblas_tpu as gb
 import graphblas_tpu.core as jcore
 from graphblas_tpu import parallel as jpar
-from graphblas_tpu_torch.parallel import testing as PT
+import torch_dist_cases as PT
 from torch_dist_parity import (WORLD_IDS, WORLDS, assert_matches,
                                port_result, spawn)
 

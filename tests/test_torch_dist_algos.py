@@ -15,12 +15,14 @@ from torch_dist_parity import (CASES, WORLD_IDS, WORLDS, assert_matches,
 
 REDUCE = ["reduce_plus", "reduce_max", "reduce_times"]
 BFS = ["bfs", "bfs_dense", "bfs_sparse"]
-NUMPY = ["u64_mxv", "u64_vxm_min", "bool_vxm", "any_mxv", "any_vxm"]
+NUMPY = ["u64_mxv", "u64_vxm_min", "bool_vxm", "any_mxv", "any_vxm",
+         "any_vxm_gap"]
 
 
 @pytest.fixture(scope="module", params=WORLDS, ids=WORLD_IDS)
 def world(request):
-    return spawn(request.param, [*REDUCE, *BFS, "pagerank", *NUMPY])
+    return spawn(request.param,
+                 [*REDUCE, "reduce_any", *BFS, "pagerank", *NUMPY])
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,6 +36,32 @@ def test_dist_reduce_matches_jax(world, name):
     got = port_result(world, name)
     assert got.shape == ()
     assert_matches(got, jax_ref(ndev, name), name == "reduce_max")
+
+
+def test_dist_reduce_any_past_an_empty_shard(world):
+    """ANY over negative values with rows 30-59 empty, so that at 3 and at
+    8 ranks a whole shard holds no entry: the largest stored value (the
+    empty rank offers the type's minimum to the MAX all-reduce, not ANY's
+    identity 0).  The JAX tier pads every shard with the identity and
+    gives 0, a value no entry holds (ROADMAP Queue 3)."""
+    ndev, _ = world
+    S = CASES["reduce_any"]["S"]
+    got = port_result(world, "reduce_any")
+    assert got.shape == () and got == S.data.max() < 0
+    assert jax_ref(ndev, "reduce_any") == 0                # the reference's
+
+
+def test_dist_vxm_any_past_an_empty_shard(world):
+    """ANY vxm over negative products with a whole shard empty: every
+    column with entries gets the largest of its products (the empty
+    rank's partial holds the type's minimum, not 0)."""
+    S, x = CASES["any_vxm_gap"]["S"], CASES["any_vxm_gap"]["x"]
+    cols = np.bincount(S.indices, minlength=S.shape[1]) > 0
+    want = np.full(S.shape[1], -np.inf)
+    np.maximum.at(want, S.indices, x[_rows(S)])
+    assert (want[cols] < 0).all()
+    got = port_result(world, "any_vxm_gap")
+    np.testing.assert_array_equal(got[cols], want[cols])
 
 
 @pytest.mark.parametrize("name", BFS)

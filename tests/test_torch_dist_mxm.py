@@ -15,7 +15,7 @@ from graphblas_tpu import parallel as jpar
 from graphblas_tpu_torch.entry import dryrun_multichip
 from graphblas_tpu_torch.parallel import dist as P
 from graphblas_tpu_torch.parallel import launch
-from graphblas_tpu_torch.parallel import testing as PT
+import torch_dist_cases as PT
 from torch_dist_parity import (WORLD_IDS, WORLDS, assert_matches,
                                port_result, spawn)
 

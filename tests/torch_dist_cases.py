@@ -1,5 +1,6 @@
 """Cases for holding the distributed tier against the JAX package's
-(``tests/test_torch_dist*.py``) on gloo ranks.
+(``test_torch_dist*.py``) on gloo ranks, and on the card
+(``test_torch_cuda.py``).
 
 A case is a dict of inputs made with numpy from a fixed seed (so the
 spawned ranks and the test process build the same ones) and of what to
@@ -8,16 +9,25 @@ call: ``op`` names the distributed function, ``sr`` the semiring as
 a predefined name, ``kw`` its keyword arguments.  ``run_port`` runs a
 case on the port inside a rank; the tests run the same case on the JAX
 package.  The ranks are spawned processes that import this module by
-name, so it imports no JAX, and ``rank_main`` checks that none was
-loaded.
+name (the spawn start method hands them the test process's sys.path),
+so it imports no JAX, and ``rank_main`` checks that none was loaded.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 import scipy.sparse as sps
+import torch
+import torch.distributed as dist
+
+from graphblas_tpu_torch import Matrix, core
+from graphblas_tpu_torch.core import config as CFG
+from graphblas_tpu_torch.core import names as _names  # noqa: F401
+from graphblas_tpu_torch.core import types as T
+from graphblas_tpu_torch.parallel import dist as P
 
 
 def random_graph(seed, n, avg_deg=5, directed=True, dtype=np.float64,
@@ -95,6 +105,7 @@ def spmv_cases():
     xb = np.random.default_rng(118).random(70) < 0.3
     neg = _abs(random_graph(19, 90, avg_deg=3))
     neg.data = -neg.data
+    gap = sps.vstack([neg[:30], sps.csr_matrix((30, 90)), neg[60:]]).tocsr()
     return {
         "partition": dict(op="partition", S=random_graph(1, 100)),
         "mxv_f64": dict(op="mxv", S=random_graph(2, 120),
@@ -162,6 +173,18 @@ def spmv_cases():
         "any_mxv": dict(op="mxv", S=neg, x=np.ones(90), sr=("ANY", "FIRST")),
         "any_vxm": dict(op="vxm", S=neg, x=-np.abs(_vec(119, 90)),
                         sr=("ANY", "FIRST")),
+        # ANY on the ring (another reference fault): negative values (rows
+        # 30-59 empty: at 3 and 8 ranks a whole shard has no entry), and
+        # bool ANY_PAIR, the BFS semiring
+        "ring_any_first": dict(op="mxv", S=gap, x=np.ones(90),
+                               sr=("ANY", "FIRST"), kw=dict(overlap=True)),
+        "ring_any_pair": dict(op="mxv", S=gb, x=xb, sr=("ANY", "PAIR"),
+                              kw=dict(overlap=True)),
+        # ANY over negative values past the empty shard (a third
+        # reference fault), and its vxm
+        "reduce_any": dict(op="reduce", S=gap, mon="ANY"),
+        "any_vxm_gap": dict(op="vxm", S=gap, x=-np.abs(_vec(119, 90)),
+                            sr=("ANY", "FIRST")),
     }
 
 
@@ -215,15 +238,7 @@ def semiring(pkg, spec):
                                  getattr(pkg.ops, op))
 
 
-def _core():
-    """The port's ``core`` package, its submodules loaded."""
-    from .. import core
-    from ..core import monoid, names, ops, semiring  # noqa: F401
-    return core
-
-
 def _host(t):
-    from ..core import types as T
     return T.bits(t).cpu().numpy().view(T.lookup(t.dtype).np_dtype)
 
 
@@ -234,9 +249,6 @@ def shard_arrays(D):
 
 def run_port(case, mesh, device, ckpt=None):
     """One case on the port's distributed tier in this rank."""
-    from .. import Matrix
-    from . import dist as P
-    core = _core()
     kw = dict(case.get("kw", {}))
     if "accum" in kw:
         kw["accum"] = getattr(core.ops, kw["accum"])
@@ -288,8 +300,6 @@ def rank_main(rank, world_size, device, names, ckpt_out=None, ckpt_in=None,
     ``ckpt_in`` (its shard arrays and a dist_mxv of ones); "ckpt_bad"
     loads one of another world size (the message it raises)."""
     assert "jax" not in sys.modules, "a rank imported jax"
-    from ..core import config as CFG
-    from . import dist as P
     mesh = P.make_mesh(world_size)
     cases = {**spmv_cases(), **mxm_cases(world_size)}
     out = {"tiers": {}}
@@ -310,8 +320,6 @@ def rank_main(rank, world_size, device, names, ckpt_out=None, ckpt_in=None,
 def _run_cases(names, cases, mesh, device, out, msgs, ckpt_out, ckpt_in,
                ckpt_bad):
     """rank_main's loop: each case's result (and its tiers) into ``out``."""
-    from .. import Matrix
-    from . import dist as P
     world_size = mesh.size()
     shared = None
     for name in names:
@@ -347,14 +355,12 @@ def _run_cases(names, cases, mesh, device, out, msgs, ckpt_out, ckpt_in,
                 else mesh
             out[name] = run_port(case, m, device, ckpt=ckpt_out)
         out["tiers"][name] = [t.split("tier=")[1] for t in msgs
-                              if "dist spmv: tier=" in t]
+                              if "spmv: tier=" in t]
 
 
 def rank_fails(rank, world_size, device):
     """A rank body whose rank 1 raises while rank 0 waits on it in a
     collective (``launch.spawn`` must stop both and report rank 1)."""
-    import torch
-    import torch.distributed as dist
     if rank == 1:
         raise ValueError("rank 1 gives up")
     dist.all_reduce(torch.ones(1))
@@ -363,6 +369,5 @@ def rank_fails(rank, world_size, device):
 
 def rank_sleeps(rank, world_size, device, seconds):
     """A rank body that outlives a short ``spawn`` deadline."""
-    import time
     time.sleep(seconds)
     return rank

@@ -4,7 +4,7 @@ first ``ndev`` of the 8 CPU devices, and compare.
 
 Each test file spawns its ranks once a world (8 and 3: with 3 the rows
 split unevenly and the tree fold pads with the identity); every rank runs
-the file's cases of ``graphblas_tpu_torch.parallel.testing`` and returns
+the file's cases of ``torch_dist_cases`` and returns
 its results.  Tolerances: exact for ints, bool, min/max and BFS levels;
 1e-5 * max|y| for fp32 sums (a reduce-scatter orders its sums unlike
 psum_scatter), 1e-12 * max|y| for fp64."""
@@ -16,7 +16,7 @@ import graphblas_tpu.core as jcore
 from graphblas_tpu import parallel as jpar
 from graphblas_tpu.core import names as _jnames  # noqa: F401
 from graphblas_tpu_torch.parallel import launch
-from graphblas_tpu_torch.parallel import testing as PT
+import torch_dist_cases as PT
 
 WORLDS = (8, 3)
 WORLD_IDS = ("world8", "world3")
