@@ -30,8 +30,13 @@ Phases, each printing one line (more for the per-graph phases):
      from the port's copy of its generator), a power-law graph — with
      mxv/vxm (unplanned, planned with mask + accum, min-plus), the fp64
      planned SpMV, CSC conversion, PageRank, BFS and SSSP, each checked
-     against scipy/numpy on the host;
-  5. launch counts: every SpMV kernel launched during phase 4;
+     against scipy/numpy on the host; then the warm A.to_format(SPARSE,
+     COL) (its row ids and values through one K9 launch): wall, one call
+     traced (idle share, device time by kernel, K9's share), and K9 with
+     both payloads against the former two library gathers;
+  5. launch counts: every SpMV kernel and K9 launched during phase 4's
+     checks (K9: the reorients of the CSC conversion, the fused PageRank,
+     BFS and SSSP and vxm);
   6. SpMV times: each kernel, its plain version and one torch.sparse CSR
      product (K1, K2, K4) at graphs (a) and (b) (CUDA events, median of
      20 after warm-up) beside the bound of its bytes, and K1's and K2's
@@ -71,9 +76,11 @@ Phases, each printing one line (more for the per-graph phases):
      beside the bound of their bytes and a torch.sort; each sort-reduce
      kernel's blocks or clusters resident at once, registers, spills and
      shared memory on this card;
- 13. K9: global_permute of graph (a)'s CSR -> CSC value permutation
-     (launches counted), exact against the plain version and scipy's CSC
-     values, timed beside its bound and one torch.take;
+ 13. K9 on graph (a)'s CSR -> CSC permutation: global_permute of fp32
+     and fp64 values through a checked plan, exact against the plain
+     version and scipy's CSC values, and the reorient's call (int32 row
+     ids and the values, the int64 order), exact and bitwise repeatable;
+     each timed beside its bound, the plain version and torch.take;
  14. eWise, pending events, unsigned arithmetic and the GrB-tier
      algorithms at graph (b), weights 1..255 from a seed, each exact
      against scipy/numpy on the host: ewise_add PLUS, ewise_mult TIMES,
@@ -175,8 +182,8 @@ KERNELS = {   # key: (name, source, TPU kernel replaced)
     "K8@32768": ("sort_reduce_cluster_regs_kernel + key2 "
                  "(sort_reduce_rows_wide, C=32768)", SR_SRC,
                  "graphblas_tpu/kernels/sortreduce.py:435"),
-    "K9": ("permute_gather_32 (global_permute, tile_permute, "
-           "sublane_permute)", PERMUTE_SRC,
+    "K9": ("gb_permute_gather (permute_rows: the CSR <-> CSC reorient, "
+           "global_permute, tile_permute, sublane_permute)", PERMUTE_SRC,
            "graphblas_tpu/kernels/static_route.py:580"),
 }
 BIG_C = 32768
@@ -390,8 +397,10 @@ def main_path(label, S, rng):
     from graphblas_tpu_torch.core import ops as OPS
     from graphblas_tpu_torch.core import semiring as SR
     from graphblas_tpu_torch.kernels import spmv_route as SPR
+    from graphblas_tpu_torch.kernels import static_route as STR
     from graphblas_tpu_torch.ops.mxm import spmv_arrays
     t0 = time.perf_counter()
+    k9_before = STR.launches
     n = S.shape[0]
     nnz = S.nnz
     S64 = S.astype(np.float64)
@@ -459,6 +468,7 @@ def main_path(label, S, rng):
     dref = csg.dijkstra(W, indices=src)
     assert np.array_equal(d, dref), "sssp"
     torch.cuda.synchronize()
+    k9 = STR.launches - k9_before
     for k in ("mxv", "mxv_plan_mask_accum", "spmv_fp64", "pagerank_fused",
               "pagerank"):
         assert checks[k] <= RELERR_GUARD, (k, checks[k])
@@ -468,11 +478,64 @@ def main_path(label, S, rng):
           f"depth={int(lref[reach].max())} pr_iters={it} "
           + " ".join(f"{k}={v:.3e}" for k, v in checks.items())
           + f" vxm_min_plus=exact bfs=exact sssp=exact "
-          f"wall_s={time.perf_counter() - t0:.1f}", flush=True)
+          f"K9 launches {k9} wall_s={time.perf_counter() - t0:.1f}",
+          flush=True)
+    reorient_times(label, A)
     p32 = SPR.plan_for(Ao.indptr, Ao.indices, Ao.values, Ao.shape,
                        build=False)
     p64 = SPR.plan_for(Ao.indptr, Ao.indices, v64, Ao.shape, build=False)
-    return dict(A=Ao, x=x, p32=p32, p64=p64)
+    return dict(A=Ao, x=x, p32=p32, p64=p64, k9=k9)
+
+
+def reorient_times(label, A):
+    """Phase 4: the warm A.to_format(SPARSE, COL) of the main path's
+    matrix: its wall (host clock, median of 5 after 2 warm-up calls), one
+    call traced (device busy and idle share, device time by kernel, K9's
+    share), and its two gathers: K9 with both payloads against the former
+    two library gathers (vecid[order] and types.take(values, order)) on
+    the same order, CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch.core import types as T
+    from graphblas_tpu_torch.kernels import segment as K
+    from graphblas_tpu_torch.kernels import static_route as STR
+    conv = lambda: A.to_format(gt.SPARSE, gt.COL)  # noqa: E731
+    walls = []
+    for _ in range(7):
+        walls.append(timed(conv)[1])
+    wall = float(np.median(walls[2:])) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_p = timed(conv)
+    busy = _busy_s([e for e in prof.events() if _on_device(e)])
+    by_k = {}
+    for e in prof.key_averages():
+        if _on_device(e) and _dev_us(e) > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0][:40]
+            by_k[name] = by_k.get(name, 0.0) + _dev_us(e) / 1e3
+    k9_ms = sum(v for k, v in by_k.items() if "permute" in k
+                or k in ("bucket_kernel", "segment_gather_kernel",
+                         "unpermute_kernel", "demote_lines"))
+    vecid = K.expand_rowids(A.indptr, A.nvals, A.nrows)
+    order = torch.sort(A.indices, stable=True)[1]
+    vals = A._vals_expanded().contiguous()
+    fused = lambda: STR.permute_rows(vecid, order, vals)  # noqa: E731
+    lib = lambda: (vecid[order], T.take(vals, order))  # noqa: E731
+    tl1, tk1, tk2, tl2 = (time_ms(f) for f in (lib, fused, fused, lib))
+    print(f"[4 reorient {label}] {card_line()} | to_format(SPARSE, COL) of "
+          f"{A.nvals} entries ({A.dtype.name}{' iso' if A.iso else ''}) "
+          f"warm wall {wall:.3f} ms (median of 5) | traced wall "
+          f"{wall_p * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms (idle "
+          f"{1 - busy / wall_p:.1%}), K9 {k9_ms:.3f} ms "
+          f"({k9_ms / (busy * 1e3):.1%} of busy); by kernel: " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in sorted(
+                  by_k.items(), key=lambda kv: -kv[1])[:6])
+          + f" | the gathers: K9 two payloads {(tk1 + tk2) / 2:.3f} ms, "
+          f"library vecid[order] + types.take {(tl1 + tl2) / 2:.3f} ms",
+          flush=True)
 
 
 def bound(nbytes, ops):
@@ -945,41 +1008,72 @@ def fast_tier_path(rng, card):
 
 
 def phase_permute(card, errs):
-    """Phase 13: K9 through ``global_permute`` on graph (a)'s CSR -> CSC
-    value permutation, the launch count set to 0 before and read after:
-    exact against the plain version and scipy's CSC values; times beside
-    the bound (12 B an element) and one torch.take."""
+    """Phase 13: K9 on graph (a)'s CSR -> CSC permutation, the launch
+    count set to 0 before and read after: through ``global_permute``'s
+    checked plan (fp32 and fp64 values) exact against the plain version
+    and scipy's CSC values, and through the reorient's entry with both
+    payloads (the int32 row ids and fp32 or fp64 values, the int64 order
+    of a stable sort) exact against the plain version, bitwise again on a
+    second call; each timed beside the bound of its bytes, the plain
+    version and one torch.take a payload.  Returns (launches, the fp32
+    one-payload times for the kernels line)."""
     import scipy.sparse as sps
     import torch
+    from graphblas_tpu_torch.core import types as T
     from graphblas_tpu_torch.kernels import static_route as STR
     S = bench_graph()
     nnz = S.nnz
     P = sps.csr_matrix((np.arange(nnz, dtype=np.int64), S.indices,
                         S.indptr), shape=S.shape).tocsc()
-    xv = np.random.default_rng(16).standard_normal(nnz).astype(np.float32)
-    x = torch.from_numpy(xv).cuda()
+    rng = np.random.default_rng(16)
     plan = STR.GlobalPermutePlan(torch.from_numpy(P.data).cuda(), nnz)
+    order = plan.perm.long()
+    vecid = torch.from_numpy(np.repeat(np.arange(S.shape[0], dtype=np.int32),
+                                       np.diff(S.indptr))).cuda()
     STR.launches = 0
-    got = STR.global_permute(x, plan)
-    torch.cuda.synchronize()
+    out, lines = None, []
+    for dt in (np.float32, np.float64):
+        xv = rng.standard_normal(nnz).astype(dt)
+        x = torch.from_numpy(xv).cuda()
+        got = STR.global_permute(x, plan)
+        gi, gx = STR.permute_rows(vecid, order, x)
+        gi2, gx2 = STR.permute_rows(vecid, order, x)
+        torch.cuda.synchronize()
+        want = sps.csr_matrix((xv, S.indices, S.indptr), shape=S.shape) \
+            .tocsc().data
+        assert np.array_equal(got.cpu().numpy(), want), "K9 vs scipy CSC"
+        assert torch.equal(got, STR.permute_plain(x, plan.perm)), "K9"
+        assert torch.equal(gx, got) and torch.equal(gx2, gx), "K9 two"
+        assert torch.equal(gi, vecid[order]) and torch.equal(gi2, gi), \
+            "K9 row ids"
+        errs["K9"] = max(errs["K9"], 0.0)
+        w = x.element_size()
+        runs = {
+            "one payload (plan, int32 perm)": (
+                lambda x=x: STR.global_permute(x, plan),
+                lambda x=x: STR.permute_plain(x, plan.perm),
+                lambda x=x: torch.take(x, order), nnz * (4 + 2 * w)),
+            "two payloads (row ids + values, int64 order)": (
+                lambda x=x: STR.permute_rows(vecid, order, x),
+                lambda x=x: STR.permute_plain(vecid, order, x),
+                lambda x=x: (torch.take(vecid, order), torch.take(x, order)),
+                nnz * (8 + 2 * (4 + w)))}
+        for what, (kern, ref, libf, nb) in runs.items():
+            tp1, tk1, tk2, tp2 = (time_ms(f) for f in (ref, kern, kern, ref))
+            tl = time_ms(libf)
+            t = ((tk1 + tk2) / 2, (tp1 + tp2) / 2, tl, *bound(nb, 0))
+            lines.append(f"{np.dtype(dt).name} {what}: {t[0]:.3f} ms, plain "
+                         f"{t[1]:.3f} ms, torch.take {t[2]:.3f} ms, bound "
+                         f"{t[3]:.4f} ms ({t[4]})")
+            if out is None:
+                out = t
     launches = STR.launches
     assert launches > 0
-    want = sps.csr_matrix((xv, S.indices, S.indptr), shape=S.shape) \
-        .tocsc().data
-    assert np.array_equal(got.cpu().numpy(), want), "K9 vs scipy CSC"
-    assert torch.equal(got, STR.permute_plain(x, plan.perm)), "K9 vs plain"
-    errs["K9"] = max(errs["K9"], 0.0)
-    perm64 = plan.perm.long()
-    kern = lambda: STR.global_permute(x, plan)  # noqa: E731
-    ref = lambda: STR.permute_plain(x, plan.perm)  # noqa: E731
-    tp1, tk1, tk2, tp2 = time_ms(ref), time_ms(kern), time_ms(kern), \
-        time_ms(ref)
-    tl = time_ms(lambda: torch.take(x, perm64))
-    out = ((tk1 + tk2) / 2, (tp1 + tp2) / 2, tl, *bound(12 * nnz, 0))
-    print(f"[13 permute] {card} | {KERNELS['K9'][0]}: {out[0]:.3f} ms on "
-          f"{nnz} elements (graph (a) CSR -> CSC), plain {out[1]:.3f} ms, "
-          f"torch.take {tl:.3f} ms, bound {out[3]:.4f} ms ({out[4]}); "
-          f"launches {launches}; exact vs plain and scipy", flush=True)
+    print(f"[13 permute] {card} | {KERNELS['K9'][0]} on {nnz} elements "
+          f"(graph (a) CSR -> CSC; {STR.passes_for(nnz, [4])} L2-blocked "
+          f"passes for fp32 alone) | " + " | ".join(lines)
+          + f" | launches {launches}; exact vs plain and scipy, "
+          f"bitwise repeatable", flush=True)
     return launches, out
 
 
@@ -2199,7 +2293,8 @@ def main():
     states = {label: main_path(label, S, rng) for label, S in graphs.items()}
     counts = {"K2": OH.launches, "K1": SPR.launches["spmv_route"],
               "K3": SPR.launches["spmv_route_monoid"],
-              "K4": SPR.launches["spmv_route_ds"]}
+              "K4": SPR.launches["spmv_route_ds"],
+              "K9": sum(st["k9"] for st in states.values())}
     print("[5 launches] " + ", ".join(
         f"{KERNELS[k][0]}={v}" for k, v in counts.items()), flush=True)
     assert all(v > 0 for v in counts.values()), counts
@@ -2244,8 +2339,8 @@ def main():
     ta.update(phase_sr_times(big, card, errs, "12 sort-reduce times C=32768"))
     phase_resources(big, card)
     del rec, big
-    # 13. K9
-    counts["K9"], ta["K9"] = phase_permute(card, errs)
+    # 13. K9 (its launches in the kernels line are the main path's)
+    _, ta["K9"] = phase_permute(card, errs)
     # 14. eWise, pending events, unsigned arithmetic, the GrB algorithms
     ewise_path(graph_b, card)
     # 15. the rest of the op layer and the operator sugar

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import time
 from typing import Callable
 
 import torch
@@ -36,6 +37,8 @@ class _Global:
     kernels_enabled: bool = True
     # device of new tensors when a constructor is given none
     device: str = "cuda"
+    # host seconds by key, fed by ``timed`` (reference: GB_Global.timing)
+    timing: dict = dataclasses.field(default_factory=dict)
 
 
 GLOBAL = _Global()
@@ -82,3 +85,19 @@ def burble(msg: str, *args) -> None:
     if GLOBAL.burble:
         GLOBAL.printf("[GB] " + (msg % args if args else msg))
 
+
+class timed:
+    """Context manager adding its block's host seconds to
+    ``GLOBAL.timing[key]`` (the reference's GB_Global.timing)."""
+
+    def __init__(self, key: str):
+        self.key = key
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        GLOBAL.timing[self.key] = GLOBAL.timing.get(self.key, 0.0) + (
+            time.perf_counter() - self.t0)
+        return False

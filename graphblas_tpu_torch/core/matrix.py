@@ -255,6 +255,13 @@ class Matrix:
             return one.expand((self.indices.shape[0],) + self.dtype.shape)
         return one.expand(self.shape + self.dtype.shape)
 
+    def iso_value(self) -> torch.Tensor:
+        """The one value of an iso matrix (a 0-d tensor; a struct type's
+        field shape)."""
+        if not self.iso:
+            raise E.InvalidValue("matrix is not iso")
+        return self.values.reshape(self.dtype.shape)
+
     # -- dense pair (the universal internal representation) ----------------
 
     def to_dense_pair(self, fill=None):
@@ -585,6 +592,25 @@ class Matrix:
             if tuple(self.values.shape) != self.shape + self.dtype.shape:
                 raise E.InvalidObject("values shape")
 
+    def fprint(self, level: int = 2, name: str = "", file=None) -> None:
+        """GxB_Matrix_fprint analog: the validity check, then a header and
+        entries (reference: Source/GB_matvec_check.c).  level: 0 silent
+        check, 1 header, 2 + the first 8 entries, 3 all entries."""
+        import sys
+        out = file or sys.stdout
+        self.check()
+        if level == 0:
+            return
+        print(f"{name or self.name or type(self).__name__}: {self!r}",
+              file=out)
+        if level >= 2:
+            r, c, v = (t.cpu().numpy() for t in self.coo())
+            shown = len(r) if level >= 3 else min(8, len(r))
+            for k in range(shown):
+                print(f"  ({r[k]},{c[k]})  {v[k]}", file=out)
+            if shown < len(r):
+                print(f"  ... ({len(r) - shown} more)", file=out)
+
     def optimize(self, plan_path=None) -> "Matrix":
         """Build (or load) the SpMV plan for this matrix and return the
         CSR-sparse FP32 view whose mxv/vxm calls run through it
@@ -619,6 +645,12 @@ class Matrix:
         spmv_route.register_plan(Ar.indptr, Ar.indices, Ar.values,
                                  Ar.shape, plan)
         return Ar
+
+    def memory_usage(self) -> int:
+        """GxB_Matrix_memoryUsage: bytes of the stored arrays."""
+        return sum(a.numel() * a.element_size()
+                   for a in (self.indptr, self.h, self.indices, self.values,
+                             self.bitmap) if a is not None)
 
     def __repr__(self):
         nv = "?" if self._pending or (self.fmt == BITMAP

@@ -1,5 +1,10 @@
 // Hand-written Hopper (sm_90a) gather-permute kernel for graphblas_tpu_torch
-// (kernels/static_route.py): out[p] = x[perm[p]] over 32-bit elements.
+// (kernels/static_route.py), K9: out_k[p] = x_k[perm[p]] for one or two
+// payloads x_0, x_1 through the same permutation, read once.  perm is int32
+// or int64 (torch.sort's order needs no conversion pass); a payload element
+// is a row of w bytes: 1, 2, 4, 8 or 16 (FC64) bytes, or a struct row of
+// any width, moved in the widest unit of 16, 8, 4, 2 or 1 bytes that
+// divides w and the addresses of x_k and out_k.
 //
 // Replaces the static permutation executors of graphblas_tpu/kernels/
 // static_route.py: sublane_permute (per-lane Benes networks on an (R, 128)
@@ -7,19 +12,37 @@
 // global_permute (two Clos-routed passes over (2048, 128) tiles).  Those
 // route a permutation through fixed networks because the TPU's TensorCore
 // cannot gather; Hopper gathers from device memory directly, so the port
-// takes the permutation itself and reads x once through it.
+// takes the permutation itself.  The port's CSR <-> CSC reorient
+// (core/convert.py) sends the row ids and the values of a matrix through
+// one launch, in the order of a stable sort.
 //
-// What bounds it on an H100: each output reads one index (4 B) and one
-// element (4 B) and writes one element (4 B): 12 B per element of
-// device-memory traffic at 3.35 TB/s.  The element reads follow the
-// permutation and are scattered, so their 32-byte sectors are mostly
-// fetched for one element each; the design keeps everything else
-// streaming: one thread per 4 outputs, neighbouring threads on
-// neighbouring outputs, four index loads and a 16-byte store per thread.
+// What bounds it on an H100: each output reads its perm entry and writes
+// its element, streaming, and reads one element of x at a place the
+// permutation chooses.  The compulsory traffic is (perm bytes + 2 w) an
+// element at 3.35 TB/s (12 B for fp32 and an int32 perm), but a random
+// read that misses the 50 MB L2 fetches a whole 32-byte sector from device
+// memory for w bytes, at a device-memory rate far below the streaming one.
+// A reorient's x is as large as the matrix's values (67 MB of fp32 at 2^24
+// nonzeros), larger than L2, so most reads miss.  The design:
+//
+//   * outputs in flight: each thread takes E outputs a tile-width apart
+//     (E = 8 on the main path), loads their E perm entries, then their E
+//     elements, then stores them: E independent random reads in flight a
+//     thread, and every perm load and out store of a warp coalesced;
+//   * L2-blocked passes (``passes`` > 1): pass s gathers only the outputs
+//     whose source index lies in the s-th of ``passes`` equal ranges of x,
+//     so that range stays in L2 while the pass reads it at random; perm is
+//     read again every pass, and each pass stores part of every output
+//     sector.  The wrapper chooses the number of passes from the bytes of
+//     x (graphblas_tpu_torch/tools/probe_permute.py measured the trade);
+//   * cache hints (flag 1): x's reads keep their lines in L2 with an
+//     evict_last policy and perm's stream past it with evict_first; the
+//     launcher puts x's lines back to evict_normal after the last pass, so
+//     later kernels keep the whole L2.
 //
 // The launcher returns cudaGetLastError(), launches on the stream it is
 // given, allocates nothing and does not synchronise.  The caller checks
-// that every index lies in [0, number of x elements).
+// that every perm entry lies in [0, nx).
 
 #include <cuda_runtime.h>
 
@@ -29,40 +52,484 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// flags of gb_permute_gather
+constexpr int kHintX = 1;     // x evict_last, perm evict_first
+constexpr int kStreamOut = 2; // out stores evict_first
+constexpr int kNoGather = 4;  // probe only: store the source index's low
+                              // bits instead of x (wrong results; times the
+                              // perm stream and the stores alone)
+constexpr int kMaskedPasses = 8;  // probe only: passes of the one-pass
+                                  // kernel, each storing the outputs whose
+                                  // source lies in its range of x
+
+__device__ __forceinline__ uint64_t policy_last() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t policy_first() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t policy_normal() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+// loads through the read-only path, no L1 allocation, an L2 policy
+__device__ __forceinline__ int32_t ld(const int32_t* a, uint64_t pol) {
+  int32_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.s32 %0, [%1], %2;"
+      : "=r"(v) : "l"(a), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ int64_t ld(const int64_t* a, uint64_t pol) {
+  int64_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.s64 %0, [%1], %2;"
+      : "=l"(v) : "l"(a), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ uint8_t ld(const uint8_t* a, uint64_t pol) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.u8 %0, [%1], %2;"
+      : "=r"(v) : "l"(a), "l"(pol));
+  return static_cast<uint8_t>(v);
+}
+__device__ __forceinline__ uint16_t ld(const uint16_t* a, uint64_t pol) {
+  uint16_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.u16 %0, [%1], %2;"
+      : "=h"(v) : "l"(a), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ uint32_t ld(const uint32_t* a, uint64_t pol) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.u32 %0, [%1], %2;"
+      : "=r"(v) : "l"(a), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ uint64_t ld(const uint64_t* a, uint64_t pol) {
+  uint64_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.u64 %0, [%1], %2;"
+      : "=l"(v) : "l"(a), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ uint4 ld(const uint4* a, uint64_t pol) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, "
+      "[%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(a), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ void st(uint8_t* a, uint8_t v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.u8 [%0], %1, %2;"
+               :: "l"(a), "r"(static_cast<uint32_t>(v)), "l"(pol)
+               : "memory");
+}
+__device__ __forceinline__ void st(uint16_t* a, uint16_t v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.u16 [%0], %1, %2;"
+               :: "l"(a), "h"(v), "l"(pol) : "memory");
+}
+__device__ __forceinline__ void st(uint32_t* a, uint32_t v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.u32 [%0], %1, %2;"
+               :: "l"(a), "r"(v), "l"(pol) : "memory");
+}
+__device__ __forceinline__ void st(uint64_t* a, uint64_t v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.u64 [%0], %1, %2;"
+               :: "l"(a), "l"(v), "l"(pol) : "memory");
+}
+__device__ __forceinline__ void st(uint4* a, uint4 v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, %4}, %5;"
+               :: "l"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(pol)
+               : "memory");
+}
+
+template <typename U>
+__device__ __forceinline__ U low_bits(int64_t i) {
+  return static_cast<U>(i);
+}
+template <>
+__device__ __forceinline__ uint4 low_bits<uint4>(int64_t i) {
+  return make_uint4(static_cast<uint32_t>(i), 0u, 0u, 0u);
+}
+
+// one payload: x and out as arrays of units U, k units an element
+struct Payload {
+  const void* x;
+  void* out;
+  int64_t k;
+  int unit;  // log2 of the unit's bytes
+};
+
+// The E elements of one thread: E loads in flight, then E stores (one unit
+// an element), or a row of k units at a time for wider rows.
+template <typename U, typename P, int E>
+__device__ __forceinline__ void gather_tile(const Payload& pl,
+                                            const P (&src)[E], int64_t base,
+                                            uint64_t px, uint64_t po,
+                                            bool no_gather) {
+  const U* x = static_cast<const U*>(pl.x);
+  U* out = static_cast<U*>(pl.out);
+  if (pl.k == 1) {
+    U v[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      v[e] = src[e] < 0 ? U{}
+             : no_gather ? low_bits<U>(src[e]) : ld(x + src[e], px);
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (src[e] >= 0) st(out + base + int64_t(e) * kThreads, v[e], po);
+    return;
+  }
+  for (int e = 0; e < E; ++e) {
+    if (src[e] < 0) continue;
+    const U* s = x + int64_t(src[e]) * pl.k;
+    U* d = out + (base + int64_t(e) * kThreads) * pl.k;
+    for (int64_t j = 0; j < pl.k; ++j)
+      st(d + j, no_gather ? low_bits<U>(src[e]) : ld(s + j, px), po);
+  }
+}
+
+template <typename P, int E>
+__device__ __forceinline__ void gather_payload(const Payload& pl,
+                                               const P (&src)[E],
+                                               int64_t base, uint64_t px,
+                                               uint64_t po, bool no_gather) {
+  switch (pl.unit) {
+    case 0: gather_tile<uint8_t>(pl, src, base, px, po, no_gather); break;
+    case 1: gather_tile<uint16_t>(pl, src, base, px, po, no_gather); break;
+    case 2: gather_tile<uint32_t>(pl, src, base, px, po, no_gather); break;
+    case 3: gather_tile<uint64_t>(pl, src, base, px, po, no_gather); break;
+    default: gather_tile<uint4>(pl, src, base, px, po, no_gather); break;
+  }
+}
+
+// One pass over all n outputs: a block takes kThreads * E consecutive
+// outputs, thread t the outputs base + e * kThreads (e < E); outputs whose
+// source lies outside [lo, hi) are left for another pass.
+template <typename P, int E>
 __global__ void __launch_bounds__(kThreads)
-permute_gather_32(const uint32_t* __restrict__ x,
-                  const int32_t* __restrict__ perm,
-                  uint32_t* __restrict__ out, int64_t n) {
-  const int64_t q = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t p = q * 4;
-  if (p + 4 <= n) {
-    uint4 o;
-    o.x = __ldg(x + perm[p]);
-    o.y = __ldg(x + perm[p + 1]);
-    o.z = __ldg(x + perm[p + 2]);
-    o.w = __ldg(x + perm[p + 3]);
-    *reinterpret_cast<uint4*>(out + p) = o;
-  } else {
-    for (int64_t i = p; i < n; ++i) out[i] = __ldg(x + perm[i]);
+permute_gather_kernel(const P* __restrict__ perm, int64_t n, Payload a,
+                      Payload b, int two, int64_t lo, int64_t hi,
+                      int flags) {
+  const uint64_t px = (flags & kHintX) ? policy_last() : policy_normal();
+  const uint64_t pp = (flags & kHintX) ? policy_first() : policy_normal();
+  const uint64_t po = (flags & kStreamOut) ? policy_first()
+                                           : policy_normal();
+  const bool no_gather = (flags & kNoGather) != 0;
+  const int64_t base = int64_t(blockIdx.x) * (kThreads * E) + threadIdx.x;
+  P src[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int64_t p = base + int64_t(e) * kThreads;
+    P i = -1;
+    if (p < n) {
+      i = ld(perm + p, pp);
+      if (i < lo || i >= hi) i = -1;
+    }
+    src[e] = i;
+  }
+  gather_payload(a, src, base, px, po, no_gather);
+  if (two) gather_payload(b, src, base, px, po, no_gather);
+}
+
+// -- the bucketed passes: bucket, one gather per segment, unpermute ---------
+//
+// Tile b holds the kTile outputs [b kTile, (b + 1) kTile).  bucket_kernel
+// reorders each tile's sources by the segment of x they lie in: the tile's
+// slots [pre[b][s], pre[b][s + 1]) of bidx hold the sources in segment s,
+// bpos the output each came from (its place in the tile).  Pass s
+// (segment_gather_kernel) reads those slots, gathers from segment s alone,
+// which stays in L2 during the pass, and writes the values into out at the
+// same slots: every device-memory access of a pass is a run of whole
+// sectors.  unpermute_kernel then moves each tile's values from slot to
+// output through shared memory.
+
+constexpr int kTile = kThreads * 8;  // outputs a tile
+constexpr int kMaxSeg = 16;          // segments of x at most
+
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+template <typename P>
+__global__ void __launch_bounds__(kThreads)
+bucket_kernel(const P* __restrict__ perm, int64_t n, int32_t seg, int nseg,
+              int32_t* __restrict__ bidx, uint16_t* __restrict__ bpos,
+              int32_t* __restrict__ pre) {
+  __shared__ int cnt[kMaxSeg];
+  __shared__ int start[kMaxSeg + 1];
+  const int tid = threadIdx.x;
+  const int64_t t0 = int64_t(blockIdx.x) * kTile;
+  if (tid < kMaxSeg) cnt[tid] = 0;
+  __syncthreads();
+  const uint64_t pp = policy_first();
+  int32_t src[8];
+  int sg[8], slot[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int64_t p = t0 + e * kThreads + tid;
+    src[e] = p < n ? static_cast<int32_t>(ld(perm + p, pp)) : 0;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    sg[e] = t0 + e * kThreads + tid < n ? min(src[e] / seg, nseg - 1) : -1;
+    // one shared-memory atomic a segment a warp: its lanes of that segment
+    // take consecutive slots
+    const unsigned peers = __match_any_sync(0xffffffffu, sg[e]);
+    const int leader = __ffs(peers) - 1;
+    int base = 0;
+    if ((tid & 31) == leader && sg[e] >= 0)
+      base = atomicAdd(&cnt[sg[e]], __popc(peers));
+    base = __shfl_sync(0xffffffffu, base, leader);
+    slot[e] = base + __popc(peers & lanes_below());
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int a = 0;
+    for (int s = 0; s < nseg; ++s) {
+      start[s] = a;
+      a += cnt[s];
+    }
+    start[nseg] = a;
+  }
+  __syncthreads();
+  if (tid <= nseg) pre[int64_t(blockIdx.x) * (nseg + 1) + tid] = start[tid];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    if (sg[e] < 0) continue;
+    const int64_t k = t0 + start[sg[e]] + slot[e];
+    bidx[k] = src[e];
+    bpos[k] = static_cast<uint16_t>(e * kThreads + tid);
+  }
+}
+
+template <typename F>
+__device__ __forceinline__ void by_unit(int unit, F&& f) {
+  switch (unit) {
+    case 0: f(uint8_t{}); break;
+    case 1: f(uint16_t{}); break;
+    case 2: f(uint32_t{}); break;
+    case 3: f(uint64_t{}); break;
+    default: f(uint4{}); break;
+  }
+}
+
+// four slots of one payload: the values from x into out at the same slots
+template <typename U>
+__device__ __forceinline__ void gather4(const Payload& pl,
+                                        const int32_t (&i)[4], int64_t at,
+                                        uint64_t px, uint64_t po) {
+  const U* x = static_cast<const U*>(pl.x);
+  U* out = static_cast<U*>(pl.out) + at;
+  U v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = i[e] < 0 ? U{} : ld(x + i[e], px);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (i[e] >= 0) st(out + e * kThreads, v[e], po);
+}
+
+// pass s over tile b: slots [pre[b][s], pre[b][s + 1]), four a thread in
+// flight, the sources read once for both payloads
+__global__ void __launch_bounds__(kThreads)
+segment_gather_kernel(const int32_t* __restrict__ bidx,
+                      const int32_t* __restrict__ pre, int nseg, int s,
+                      Payload a, Payload b, int two, int flags) {
+  const uint64_t px = (flags & kHintX) ? policy_last() : policy_normal();
+  const uint64_t pp = policy_first();
+  const uint64_t po = (flags & kStreamOut) ? policy_first()
+                                           : policy_normal();
+  const int64_t t0 = int64_t(blockIdx.x) * kTile;
+  const int32_t* tp = pre + int64_t(blockIdx.x) * (nseg + 1) + s;
+  const int lo = tp[0], hi = tp[1];
+  for (int k0 = lo + threadIdx.x; k0 < hi; k0 += 4 * kThreads) {
+    int32_t i[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + e * kThreads;
+      i[e] = k < hi ? ld(bidx + t0 + k, pp) : -1;
+    }
+    by_unit(a.unit, [&](auto u) {
+      gather4<decltype(u)>(a, i, t0 + k0, px, po);
+    });
+    if (two)
+      by_unit(b.unit, [&](auto u) {
+        gather4<decltype(u)>(b, i, t0 + k0, px, po);
+      });
+  }
+}
+
+// each tile's values from slot k to output bpos[k], through shared memory
+__global__ void __launch_bounds__(kThreads)
+unpermute_kernel(const uint16_t* __restrict__ bpos, int64_t n, Payload a,
+                 Payload b, int two) {
+  __shared__ uint4 sm[kTile];
+  const int64_t t0 = int64_t(blockIdx.x) * kTile;
+  const int cnt = n - t0 < kTile ? static_cast<int>(n - t0) : kTile;
+  int pos[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int k = e * kThreads + threadIdx.x;
+    pos[e] = k < cnt ? bpos[t0 + k] : 0;
+  }
+  for (int q = 0; q <= two; ++q) {
+    const Payload& pl = q ? b : a;
+    by_unit(pl.unit, [&](auto u) {
+      using U = decltype(u);
+      U* tile = reinterpret_cast<U*>(sm);
+      U* out = static_cast<U*>(pl.out) + t0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = e * kThreads + threadIdx.x;
+        if (k < cnt) tile[pos[e]] = out[k];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = e * kThreads + threadIdx.x;
+        if (k < cnt) out[k] = tile[k];
+      }
+      __syncthreads();
+    });
+  }
+}
+
+// x's lines back to evict_normal after the passes that kept them evict_last
+__global__ void __launch_bounds__(kThreads)
+demote_lines(const char* __restrict__ x, int64_t lines) {
+  const int64_t l = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (l < lines)
+    asm volatile("applypriority.global.L2::evict_normal [%0], 128;"
+                 :: "l"(x + l * 128) : "memory");
+}
+
+cudaError_t demote(const void* x, int64_t bytes, cudaStream_t stream) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x) & ~uintptr_t(127);
+  const int64_t lines =
+      (reinterpret_cast<uintptr_t>(x) + bytes - a + 127) / 128;
+  if (lines <= 0) return cudaSuccess;
+  demote_lines<<<static_cast<unsigned>((lines + kThreads - 1) / kThreads),
+                 kThreads, 0, stream>>>(reinterpret_cast<const char*>(a),
+                                        lines);
+  return cudaGetLastError();
+}
+
+Payload payload(const void* x, void* out, int64_t w) {
+  int unit = 4;  // the widest unit dividing w and both addresses
+  while (unit > 0) {
+    const int64_t u = int64_t(1) << unit;
+    if (w % u == 0 && reinterpret_cast<uintptr_t>(x) % u == 0 &&
+        reinterpret_cast<uintptr_t>(out) % u == 0)
+      break;
+    --unit;
+  }
+  return Payload{x, out, w >> unit, unit};
+}
+
+template <typename P, int E>
+cudaError_t launch(const void* perm, int64_t n, Payload a, Payload b,
+                   int two, int64_t lo, int64_t hi, int flags,
+                   cudaStream_t stream) {
+  const int64_t blocks = (n + int64_t(kThreads) * E - 1) / (kThreads * E);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  permute_gather_kernel<P, E><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                stream>>>(static_cast<const P*>(perm), n, a,
+                                          b, two, lo, hi, flags);
+  return cudaGetLastError();
+}
+
+template <typename P>
+cudaError_t launch_bucketed(const void* perm, int64_t n, Payload a,
+                            Payload b, int two, int64_t nx, int nseg,
+                            int flags, int32_t* bidx, uint16_t* bpos,
+                            int32_t* pre, cudaStream_t stream) {
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  const auto grid = static_cast<unsigned>(tiles);
+  const auto seg = static_cast<int32_t>((nx + nseg - 1) / nseg);
+  bucket_kernel<P><<<grid, kThreads, 0, stream>>>(
+      static_cast<const P*>(perm), n, seg, nseg, bidx, bpos, pre);
+  for (int s = 0; s < nseg; ++s)
+    segment_gather_kernel<<<grid, kThreads, 0, stream>>>(bidx, pre, nseg, s,
+                                                         a, b, two, flags);
+  unpermute_kernel<<<grid, kThreads, 0, stream>>>(bpos, n, a, b, two);
+  return cudaGetLastError();
+}
+
+template <typename P>
+cudaError_t launch_e(int per_thread, const void* perm, int64_t n, Payload a,
+                     Payload b, int two, int64_t lo, int64_t hi, int flags,
+                     cudaStream_t s) {
+  switch (per_thread) {
+    case 4: return launch<P, 4>(perm, n, a, b, two, lo, hi, flags, s);
+    case 8: return launch<P, 8>(perm, n, a, b, two, lo, hi, flags, s);
+    case 16: return launch<P, 16>(perm, n, a, b, two, lo, hi, flags, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// out (16-byte aligned) receives n elements; x and out hold 32-bit
-// elements of any type.
-extern "C" int gb_permute_gather_32(const void* x, const void* perm,
-                                    void* out, int64_t n, void* stream) {
+// out0[p] = x0[perm[p]] (rows of w0 bytes) for p < n and, when w1 > 0,
+// out1[p] = x1[perm[p]] (rows of w1 bytes) in the same launch.  perm holds
+// perm_bytes = 4 or 8 byte signed indices into the nx rows of x0 (and x1).
+// passes >= 1: the number of L2-blocked passes; with passes > 1, rows of at
+// most 16 bytes that their addresses align and nx < 2^31, the bucketed
+// passes (scratch: bidx and bpos of n slots, pre of ceil(n / kTile) *
+// (passes + 1) entries, passes <= kMaxSeg), else one pass (kMaskedPasses:
+// that many masked passes of the one-pass kernel, the probe's comparison).
+// per_thread: outputs a thread of the one-pass kernel, 4, 8 or 16; flags:
+// kHintX | kStreamOut (| kNoGather | kMaskedPasses, probe only).
+extern "C" int gb_permute_gather(const void* perm, int perm_bytes, int64_t n,
+                                 const void* x0, void* out0, int64_t w0,
+                                 const void* x1, void* out1, int64_t w1,
+                                 int64_t nx, int64_t passes, int per_thread,
+                                 int flags, void* bidx, void* bpos, void* pre,
+                                 void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+  if ((perm_bytes != 4 && perm_bytes != 8) || w0 <= 0 || w1 < 0 ||
+      nx <= 0 || passes < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (n + 4 * kThreads - 1) / (4 * kThreads);
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  permute_gather_32<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<const int32_t*>(perm),
-      static_cast<uint32_t*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  const Payload a = payload(x0, out0, w0);
+  const int two = w1 > 0;
+  const Payload b = two ? payload(x1, out1, w1) : a;
+  cudaError_t e = cudaSuccess;
+  const bool masked = (flags & kMaskedPasses) != 0;
+  if (passes > 1 && !masked && a.k == 1 && b.k == 1 && nx < 0x7fffffff) {
+    if (passes > kMaxSeg || !bidx || !bpos || !pre)
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto* bi = static_cast<int32_t*>(bidx);
+    auto* bp = static_cast<uint16_t*>(bpos);
+    auto* pr = static_cast<int32_t*>(pre);
+    e = perm_bytes == 4
+            ? launch_bucketed<int32_t>(perm, n, a, b, two, nx, int(passes),
+                                       flags, bi, bp, pr, s)
+            : launch_bucketed<int64_t>(perm, n, a, b, two, nx, int(passes),
+                                       flags, bi, bp, pr, s);
+  } else {  // one pass, or the probe's masked passes
+    const int64_t np = masked ? passes : 1;
+    const int64_t seg = (nx + np - 1) / np;
+    for (int64_t lo = 0; lo < nx && e == cudaSuccess; lo += seg) {
+      const int64_t hi = np == 1 ? INT64_MAX : lo + seg;
+      const int64_t from = np == 1 ? INT64_MIN : lo;
+      e = perm_bytes == 4
+              ? launch_e<int32_t>(per_thread, perm, n, a, b, two, from, hi,
+                                  flags, s)
+              : launch_e<int64_t>(per_thread, perm, n, a, b, two, from, hi,
+                                  flags, s);
+    }
+  }
+  if (e == cudaSuccess && (flags & kHintX)) {
+    e = demote(x0, nx * w0, s);
+    if (e == cudaSuccess && two) e = demote(x1, nx * w1, s);
+  }
+  return static_cast<int>(e == cudaSuccess ? cudaGetLastError() : e);
 }
 
 extern "C" const char* gb_error_string(int err) {

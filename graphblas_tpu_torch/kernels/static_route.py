@@ -8,29 +8,45 @@ the executors of ``graphblas_tpu.kernels.static_route`` (K9).
   * ``sublane_permute(x, perm_cols)`` replaces ``sublane_permute``
     (l.400): lane column l of an (R, 128) tile permuted on its own,
     ``out[r, l] = x[perm_cols[l, r], l]``
+  * ``permute_rows(x, perm, *more)``: the unchecked entry under them and
+    under the CSR <-> CSC reorient (``core/convert.py``): rows of ``x``
+    and of at most one more payload through one permutation
 
 The TPU executors run Benes and Clos networks built by host planners
 (``benes_route``, ``clos_route``, the two-phase ``GlobalPermutePlan``)
 because the TensorCore cannot gather.  Hopper gathers from device memory,
 so the port takes the permutation itself and has no planner: every entry
-point is one launch of ``permute_gather_32`` (``csrc/permute.cu``) for
-CUDA tensors, counted in ``launches``, and the plain version
-``x.reshape(-1)[perm]`` for CPU tensors.  Elements are any 32-bit type.
-Permutations are checked (every index in range, each used once) where
+point is one call of ``gb_permute_gather`` (``csrc/permute.cu``) for CUDA
+tensors, counted in ``launches``, and the plain version ``permute_plain``
+for CPU tensors.  Rows are of any type and width (1, 2, 4, 8, 16 bytes,
+struct rows); permutations are int32 or int64.  The public entry points
+check their permutations (every index in range, each used once) where
 they enter: in ``GlobalPermutePlan`` once, and on every call that is
-given a bare permutation.
+given a bare permutation.  ``permute_rows`` checks nothing: its callers
+pass a sort's order, whose check would cost host syncs.
 """
 
 from __future__ import annotations
 
 import torch
 
+import math
+
 from ..core import config as CFG
+from ..core import types as T
 from . import _cuda
 
 LANES = 128
 
-# launches of the CUDA kernel (CPU calls run the plain version, uncounted)
+# K9's launch shape on the card (graphblas_tpu_torch/tools/probe_permute.py
+# chose it; PERF.md gives its times): outputs a thread, bytes of x's rows a
+# pass keeps in L2 (0: one pass over all outputs), cache hints
+PER_THREAD = 8
+PASS_BYTES = 0
+FLAGS = 0
+
+# calls of the CUDA kernel, all its passes one call (CPU calls run the
+# plain version, uncounted)
 launches = 0
 
 
@@ -67,25 +83,62 @@ class GlobalPermutePlan:
         self.perm = _checked(perm, self.n, device)
 
 
-def permute_plain(x, perm) -> torch.Tensor:
-    """Plain version of ``permute_gather_32``: x.flat[perm] (1-D)."""
-    return x.reshape(-1)[perm.long()]
+def permute_plain(x, perm, *more):
+    """Plain version of K9: ``x[perm]`` (rows: dim 0), and each of ``more``
+    through the same ``perm`` (then a tuple)."""
+    idx = perm.long()
+    outs = tuple(T.take(t, idx) for t in (x,) + more)
+    return outs if more else outs[0]
 
 
-def _gather(x, perm) -> torch.Tensor:
-    """x.flat[perm] (1-D; ``perm`` already checked)."""
-    if not x.is_cuda:
-        return permute_plain(x, perm)
-    if x.element_size() != 4 or x.is_complex():
-        raise TypeError(f"permute_gather_32: elements of {x.dtype}")
-    xf = x.reshape(-1)
-    _cuda.require(xf, "x", x.dtype, x.device)
-    _cuda.require(perm, "perm", torch.int32, x.device)
-    out = torch.empty(perm.numel(), dtype=x.dtype, device=x.device)
-    _cuda.permute_gather_32(xf, perm, out)
-    global launches
-    launches += 1
-    return out
+def passes_for(nx: int, row_bytes) -> int:
+    """L2-blocked passes for sources of ``nx`` rows of ``sum(row_bytes)``
+    bytes."""
+    if not PASS_BYTES:
+        return 1
+    return max(1, min(_cuda.PERMUTE_MAX_PASSES,
+                      -(-nx * sum(row_bytes) // PASS_BYTES)))
+
+
+def permute_rows(x, perm, *more):
+    """out_k[p] = x_k[perm[p]] over the rows (dim 0) of ``x`` and of at
+    most one tensor in ``more``, through one K9 launch when the tensors lie
+    on the card, ``permute_plain`` when they lie on the CPU (a tuple of
+    both outputs when ``more`` is given).  ``perm`` is a 1-D int32 or int64
+    tensor whose entries the caller vouches for: each in [0, rows of x)."""
+    if len(more) > 1:
+        raise ValueError(f"permute_rows: one or two payloads, got "
+                         f"{1 + len(more)}")
+    xs = (x,) + more
+    if not (perm.is_cuda or any(t.is_cuda for t in xs)):
+        return permute_plain(x, perm, *more)
+    dev = perm.device
+    if perm.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"permute_rows: perm of dtype {perm.dtype}")
+    if perm.dim() != 1 or not perm.is_contiguous():
+        raise ValueError("permute_rows: perm must be a contiguous 1-D "
+                         "tensor")
+    nx = int(x.shape[0]) if x.dim() else -1
+    for t in xs:
+        if t.device != dev:
+            raise ValueError(f"permute_rows: payload on {t.device}, perm "
+                             f"on {dev}")
+        if t.dim() == 0 or int(t.shape[0]) != nx:
+            raise ValueError("permute_rows: payloads of different lengths")
+        if not t.is_contiguous():
+            raise ValueError("permute_rows: payloads must be contiguous")
+    n = perm.numel()
+    outs = tuple(torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                             device=dev) for t in xs)
+    row_bytes = [t.element_size() * math.prod(t.shape[1:]) for t in xs]
+    if n and min(row_bytes):
+        if not nx:
+            raise ValueError("permute_rows: indices into an empty payload")
+        _cuda.permute_gather(perm, xs, outs, row_bytes, nx,
+                             passes_for(nx, row_bytes), PER_THREAD, FLAGS)
+        global launches
+        launches += 1
+    return outs if more else outs[0]
 
 
 def global_permute(x, plan) -> torch.Tensor:
@@ -98,7 +151,7 @@ def global_permute(x, plan) -> torch.Tensor:
         perm = plan.perm
     else:
         perm = _checked(plan, n, x.device)
-    return _gather(x, perm).reshape(x.shape)
+    return permute_rows(x.reshape(-1), perm).reshape(x.shape)
 
 
 def _tile_rows(x) -> int:
@@ -125,4 +178,5 @@ def sublane_permute(x, perm_cols) -> torch.Tensor:
     lane = torch.arange(LANES, device=x.device)
     flat = pc.long().T * LANES + lane                  # (R, 128) sources
     # each column a permutation of range(R) <=> flat one of range(R * 128)
-    return _gather(x, _checked(flat, R * LANES, x.device)).reshape(R, LANES)
+    return permute_rows(x.reshape(-1), _checked(flat, R * LANES, x.device)
+                        ).reshape(R, LANES)

@@ -55,6 +55,12 @@ except ImportError:  # pragma: no cover
     pass
 
 
+def register_codec(name, compress, decompress):
+    """Plug in an external codec: ``compress(bytes, level) -> bytes`` and
+    ``decompress(bytes) -> bytes``, named in the blob's header."""
+    _CODECS[name] = (compress, decompress)
+
+
 def _gbz_compress_array(npa: np.ndarray, level: int) -> bytes:
     from ..utils import native as NV
     if np.issubdtype(npa.dtype, np.integer) and npa.ndim == 1:

@@ -1,8 +1,9 @@
 """Inputs and comparisons for holding the sort-reduce kernels (K5-K8,
 kernels/sortreduce.py) against their plain versions, operands for the
 fast SpGEMM tier's full-row edge case, misaligned copies of the SpMV
-kernels' operands, the RMAT graph generator of the benchmarks, and
-pending set/remove events with their host reference.  Used by
+kernels' operands, the RMAT graph generator of the benchmarks,
+pending set/remove events with their host reference, and the payloads
+of every width that K9 (kernels/static_route.py) moves.  Used by
 chip_smoke.py and the tests, among them tests/test_torch_cuda.py;
 nothing here launches a kernel."""
 
@@ -99,13 +100,53 @@ def apply_events(rows, cols, vals, events, shape):
 
 
 def shifted(t, by):
-    """``t`` as a contiguous view ``by`` elements into a fresh buffer: its
-    16-byte alignment moves by ``by`` elements (the SpMV kernels' 16-byte
-    loads start where their operands reach it)."""
-    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    """``t`` as a contiguous view ``by`` rows (elements of a 1-D tensor)
+    into a fresh buffer: its 16-byte alignment moves by ``by`` rows (the
+    SpMV kernels' 16-byte loads start where their operands reach it; K9
+    picks its unit by it)."""
+    buf = torch.empty((t.shape[0] + by,) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
     out = buf[by:]
     out.copy_(t)
     return out
+
+
+# K9's payload kinds: every width the port stores (1, 2, 4, 8, 16 bytes)
+# and struct rows
+K9_PAYLOADS = {"bool": (torch.bool, ()), "int8": (torch.int8, ()),
+               "int16": (torch.int16, ()), "fp32": (torch.float32, ()),
+               "fp64": (torch.float64, ()), "uint64": (torch.uint64, ()),
+               "fc64": (torch.complex128, ()),
+               "int32x3": (torch.int32, (3,)),
+               "int64x2": (torch.int64, (2,))}
+
+
+def k9_payload(rng, n, kind):
+    """``n`` rows of the K9 payload ``kind`` (a key of ``K9_PAYLOADS``) on
+    the CPU: normal floats, random bits for the integer types."""
+    dt, shape = K9_PAYLOADS[kind]
+    size = (n,) + shape
+    if dt == torch.bool:
+        return torch.from_numpy(rng.random(size) < 0.5)
+    if dt.is_complex:
+        return torch.from_numpy(rng.standard_normal(size)
+                                + 1j * rng.standard_normal(size))
+    if dt.is_floating_point:
+        return torch.from_numpy(rng.standard_normal(size)).to(dt)
+    out = torch.empty(size, dtype=dt)
+    raw = rng.integers(0, 256, out.numel() * out.element_size(),
+                       dtype=np.uint8)
+    out.reshape(-1).view(torch.uint8).copy_(torch.from_numpy(raw))
+    return out
+
+
+def same_bits(a, b) -> bool:
+    """Same shape, dtype and bytes (NaN-safe, any dtype)."""
+    def raw(t):
+        return t.reshape(-1).clone(memory_format=torch.contiguous_format) \
+            .view(torch.uint8).cpu()
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        raw(a), raw(b))
 
 
 def full_row_operands(C, rng, m=64, n=400):

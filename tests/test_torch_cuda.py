@@ -1,7 +1,8 @@
 """The port's CUDA kernels (SpMV K1-K4, sort-reduce K5-K8 at every C, the
-gather-permute K9) against their plain torch versions, the fast SpGEMM
-tier on K5/K6 against scipy, the union merge, wait() and the distributed
-tier (a world-size-1 NCCL group) against the CPU's results, on a card.
+gather-permute K9 at every payload width) against their plain torch
+versions, the fast SpGEMM tier on K5/K6 against scipy, the union merge,
+wait(), the CSR <-> CSC reorient and the distributed tier (a world-size-1
+NCCL group) against the CPU's results, on a card.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -18,8 +19,11 @@ import pytest
 import scipy.sparse as sps
 import torch
 
+import graphblas_tpu_torch as gt
 from graphblas_tpu_torch import testing as GT
+from graphblas_tpu_torch.core import types as TT
 from graphblas_tpu_torch.core import monoid as TM
+from graphblas_tpu_torch.kernels import _cuda
 from graphblas_tpu_torch.kernels import sortreduce as SRD
 from graphblas_tpu_torch.kernels import spmv_onehot as OH
 from graphblas_tpu_torch.kernels import spmv_route as SPR
@@ -352,6 +356,87 @@ def test_permute_gather_matches_plain(cuda_device, n, dtype):
     assert np.array_equal(STR.tile_permute(tile, perm).cpu().numpy(),
                           tile.cpu().numpy().reshape(-1)[perm].reshape(R,
                                                                        128))
+
+
+@pytest.mark.parametrize("pdt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", list(GT.K9_PAYLOADS))
+def test_permute_rows_matches_plain(cuda_device, kind, pdt):
+    """K9 at every payload width, alone and beside the int32 row ids, on
+    an odd tail, from a source and into outputs one row past their
+    alignment, in one pass and in three L2-blocked passes (bucketed, and
+    masked) with each cache hint: bitwise the plain version, and bitwise
+    again on a second call."""
+    rng = np.random.default_rng(90)
+    n = (1 << 16) + 37
+    x = GT.k9_payload(rng, n, kind)
+    ids = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32))
+    perm = torch.from_numpy(rng.permutation(n)).to(pdt)
+    want_x, want_ids = STR.permute_plain(x, perm), ids[perm.long()]
+    xc, idc, pc = (t.to(cuda_device) for t in (x, ids, perm))
+    before = STR.launches
+    one = STR.permute_rows(xc, pc)
+    gi, gx = STR.permute_rows(idc, pc, xc)
+    gi2, gx2 = STR.permute_rows(idc, pc, xc)
+    torch.cuda.synchronize()
+    assert STR.launches == before + 3
+    assert GT.same_bits(one, want_x) and GT.same_bits(gx, want_x)
+    assert GT.same_bits(gi, want_ids)
+    assert GT.same_bits(gi2, gi) and GT.same_bits(gx2, gx)
+    rb = [4, x.element_size() * x[0].numel()]
+    xs = [GT.shifted(idc, 1), GT.shifted(xc, 1)]
+    for passes in (1, 3):
+        for flags in (0, 1, 3, 9):          # 9: the probe's masked passes
+            outs = [GT.shifted(torch.zeros_like(t), 1) for t in (idc, xc)]
+            _cuda.permute_gather(pc, xs, outs, rb, n, passes, 8, flags)
+            torch.cuda.synchronize()
+            assert GT.same_bits(outs[0], want_ids), (passes, flags)
+            assert GT.same_bits(outs[1], want_x), (passes, flags)
+
+
+def test_permute_rows_refuses_bad_operands(cuda_device):
+    x = torch.arange(10, dtype=torch.float32, device=cuda_device)
+    perm = torch.arange(10, device=cuda_device)
+    with pytest.raises(TypeError):
+        STR.permute_rows(x, perm.float())
+    with pytest.raises(ValueError):                 # three payloads
+        STR.permute_rows(x, perm, x, x)
+    with pytest.raises(ValueError):                 # not contiguous
+        STR.permute_rows(torch.zeros(10, 2, device=cuda_device)[:, 0], perm)
+    with pytest.raises(ValueError):                 # another length
+        STR.permute_rows(x, perm, x[:9])
+    with pytest.raises(ValueError):                 # the payload elsewhere
+        STR.permute_rows(x.cpu(), perm)
+    assert STR.permute_rows(x, perm[:0]).shape == (0,)
+
+
+@pytest.mark.parametrize("dtype", ["FP32", "FP64", "INT8", "BOOL", "UINT64",
+                                   "FC64", "iso"])
+def test_reorient_on_card_matches_cpu(cuda_device, dtype):
+    """A.to_format(SPARSE, COL) of an RMAT-14 matrix stored by row runs
+    its row ids and values through one K9 launch and gives the CPU's
+    arrays bitwise; and back by row gives A's."""
+    rng = np.random.default_rng(91)
+    r, c, n = GT.rmat_edges(14, 16, rng)
+    iso = dtype == "iso"
+    ty = TT.FP32 if iso else getattr(TT, dtype)
+    vals = GT.k9_payload(rng, r.size, {"FP32": "fp32", "FP64": "fp64",
+                                       "INT8": "int8", "BOOL": "bool",
+                                       "UINT64": "uint64", "FC64": "fc64",
+                                       "iso": "fp32"}[dtype])
+    vals = vals[:1].numpy() if iso else vals.numpy()
+    mats = {d: gt.Matrix.from_coo(r, c, vals[0] if iso else vals, (n, n),
+                                  dtype=ty, dup="first", iso=iso, device=d)
+            for d in ("cpu", "cuda")}
+    before = STR.launches
+    cols = {d: A.to_format(gt.SPARSE, gt.COL) for d, A in mats.items()}
+    torch.cuda.synchronize()
+    assert STR.launches == before + 1
+    back = cols["cuda"].to_format(gt.SPARSE, gt.ROW)
+    for name in ("indptr", "indices", "values"):
+        assert GT.same_bits(getattr(cols["cuda"], name),
+                            getattr(cols["cpu"], name)), name
+        assert GT.same_bits(getattr(back, name),
+                            getattr(mats["cuda"], name)), name
 
 
 def test_fold_is_bitwise_repeatable(cuda_device):

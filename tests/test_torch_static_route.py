@@ -2,9 +2,9 @@
 graphblas_tpu_torch.kernels.static_route (plain version on the CPU),
 against numpy ``x[perm]`` and against the JAX package's executors in
 Pallas interpret mode, with their plans built as tests/test_static_route.py
-builds them (benes_route + pack_masks, clos_route, GlobalPermutePlan).
-Every comparison is exact: a permutation moves values without
-arithmetic."""
+builds them (benes_route + pack_masks, clos_route, GlobalPermutePlan), and
+the unchecked row entry ``permute_rows`` at every payload width.  Every
+comparison is exact: a permutation moves values without arithmetic."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from graphblas_tpu.kernels import static_route as JSR
+from graphblas_tpu_torch import testing as GT
 from graphblas_tpu_torch.kernels import static_route as STR
 from torch_parity import cpu_default  # noqa: F401
 
@@ -91,3 +92,51 @@ def test_global_permute_matches_jax_interpret():
                              STR.GlobalPermutePlan(perm, n))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), x[perm])
+
+
+def _row_bytes(t):
+    """The bytes of each row of ``t`` as an (n, w) uint8 array."""
+    w = t.element_size() * t[0].numel() if len(t) else 1
+    flat = t.reshape(-1).clone(memory_format=torch.contiguous_format)
+    return flat.view(torch.uint8).numpy().reshape(len(t), w)
+
+
+@pytest.mark.parametrize("pdt", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", list(GT.K9_PAYLOADS))
+def test_permute_rows_plain_matches_numpy(kind, pdt):
+    """The widened plain version (and ``permute_rows`` on CPU tensors) at
+    every payload width, a struct row among them, through int32 and int64
+    permutations, one and two payloads, at n = 0, 1 and 1000."""
+    rng = np.random.default_rng(40)
+    for n in (0, 1, 1000):
+        x = GT.k9_payload(rng, n, kind)
+        ids = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32))
+        p = rng.permutation(n)
+        perm = torch.from_numpy(p).to(pdt)
+        one = STR.permute_plain(x, perm)
+        assert one.dtype == x.dtype and one.shape == x.shape
+        # numpy moves the same bytes: rows of x through p
+        np.testing.assert_array_equal(_row_bytes(one), _row_bytes(x)[p])
+        gi, gx = STR.permute_rows(ids, perm, x)
+        np.testing.assert_array_equal(gi.numpy(), ids.numpy()[p])
+        assert GT.same_bits(gx, one) and GT.same_bits(
+            STR.permute_rows(x, perm), one)
+
+
+def test_permute_rows_matches_jax_global_permute():
+    """The unchecked entry against the JAX ``global_permute`` in Pallas
+    interpret mode on one (2048, 128) tile (fp32: the JAX executor's
+    type), the int32 second payload against numpy, through the int64
+    order a sort gives."""
+    rng = np.random.default_rng(41)
+    n = JSR.TILE_R * 128 - 999
+    p = rng.permutation(n)
+    plan = JSR.GlobalPermutePlan(p, n)
+    x = rng.standard_normal(n).astype(np.float32)
+    ids = rng.integers(-1 << 30, 1 << 30, n).astype(np.int32)
+    gi, gx = STR.permute_rows(torch.from_numpy(ids), torch.from_numpy(p),
+                              torch.from_numpy(x))
+    want = np.asarray(JSR.global_permute(jnp.asarray(x), plan,
+                                         interpret=True))
+    np.testing.assert_array_equal(gx.numpy(), want)
+    np.testing.assert_array_equal(gi.numpy(), ids[p])
