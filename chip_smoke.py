@@ -97,7 +97,8 @@ Phases, each printing one line (more for the per-graph phases):
      weak components, least-vertex labels) and sssp_grb (Dijkstra); each
      step's wall cold and warm, one warm ewise_add under torch.profiler
      with the device idle share, and the K1-K9 launches during the phase
-     (no kernel lies on this path);
+     (K9 through the reorients of gt.transpose and the GrB-tier
+     algorithms; no other kernel lies on this path);
  15. the rest of the op layer and the operator sugar at graph (b),
      weights 1..255 from a seed, each step through gt.* and exact against
      scipy/numpy on the host: extract (the sentinel-sort and compact
@@ -489,11 +490,12 @@ def main_path(label, S, rng):
 
 def reorient_times(label, A):
     """Phase 4: the warm A.to_format(SPARSE, COL) of the main path's
-    matrix: its wall (host clock, median of 5 after 2 warm-up calls), one
-    call traced (device busy and idle share, device time by kernel, K9's
-    share), and its two gathers: K9 with both payloads against the former
-    two library gathers (vecid[order] and types.take(values, order)) on
-    the same order, CUDA events."""
+    matrix: its wall (host clock, median of 5 after 2 warm-up calls, in
+    turns with the same steps on two library gathers, vecid[order] and
+    types.take(values, order), whose arrays it equals), one call traced
+    (device busy and idle share, device time by kernel, K9's share), and
+    the gathers alone: K9 with both payloads against the two library
+    gathers on the same order, CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -502,10 +504,24 @@ def reorient_times(label, A):
     from graphblas_tpu_torch.kernels import segment as K
     from graphblas_tpu_torch.kernels import static_route as STR
     conv = lambda: A.to_format(gt.SPARSE, gt.COL)  # noqa: E731
-    walls = []
-    for _ in range(7):
-        walls.append(timed(conv)[1])
-    wall = float(np.median(walls[2:])) * 1e3
+
+    def before():
+        """The reorient as it ran before K9 served it: the same steps with
+        two library gathers (the yardstick)."""
+        vecid = K.expand_rowids(A.indptr, A.nvals, A.nrows)
+        sidx, order = torch.sort(A.indices, stable=True)
+        return (K.indptr_from_sorted(sidx, A.ncols, torch.int32),
+                vecid[order].to(torch.int32),
+                T.take(A._vals_expanded(), order))
+
+    C = conv()
+    assert all(torch.equal(a, b) for a, b in zip(
+        (C.indptr, C.indices, C.values), before())), "reorient"
+
+    def wall_ms(fn):
+        return float(np.median([timed(fn)[1] for _ in range(7)][2:])) * 1e3
+    w1, b1, b2, w2 = (wall_ms(f) for f in (conv, before, before, conv))
+    wall, wall_before = (w1 + w2) / 2, (b1 + b2) / 2
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_p = timed(conv)
@@ -516,9 +532,9 @@ def reorient_times(label, A):
             name = e.key.replace("(anonymous namespace)::", "")
             name = name.split("(")[0].split("<")[0][:40]
             by_k[name] = by_k.get(name, 0.0) + _dev_us(e) / 1e3
-    k9_ms = sum(v for k, v in by_k.items() if "permute" in k
-                or k in ("bucket_kernel", "segment_gather_kernel",
-                         "unpermute_kernel", "demote_lines"))
+    k9_ms = sum(v for k, v in by_k.items() if any(
+        t in k for t in ("permute_gather_kernel", "pack_kernel",
+                         "gather_pairs_kernel", "demote_lines")))
     vecid = K.expand_rowids(A.indptr, A.nvals, A.nrows)
     order = torch.sort(A.indices, stable=True)[1]
     vals = A._vals_expanded().contiguous()
@@ -527,7 +543,8 @@ def reorient_times(label, A):
     tl1, tk1, tk2, tl2 = (time_ms(f) for f in (lib, fused, fused, lib))
     print(f"[4 reorient {label}] {card_line()} | to_format(SPARSE, COL) of "
           f"{A.nvals} entries ({A.dtype.name}{' iso' if A.iso else ''}) "
-          f"warm wall {wall:.3f} ms (median of 5) | traced wall "
+          f"warm wall {wall:.3f} ms (median of 5, two rounds), with the "
+          f"two library gathers instead {wall_before:.3f} ms | traced wall "
           f"{wall_p * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms (idle "
           f"{1 - busy / wall_p:.1%}), K9 {k9_ms:.3f} ms "
           f"({k9_ms / (busy * 1e3):.1%} of busy); by kernel: " + ", ".join(

@@ -14,31 +14,37 @@
 // cannot gather; Hopper gathers from device memory directly, so the port
 // takes the permutation itself.  The port's CSR <-> CSC reorient
 // (core/convert.py) sends the row ids and the values of a matrix through
-// one launch, in the order of a stable sort.
+// one call, in the order of a stable sort.
 //
 // What bounds it on an H100: each output reads its perm entry and writes
 // its element, streaming, and reads one element of x at a place the
 // permutation chooses.  The compulsory traffic is (perm bytes + 2 w) an
 // element at 3.35 TB/s (12 B for fp32 and an int32 perm), but a random
 // read that misses the 50 MB L2 fetches a whole 32-byte sector from device
-// memory for w bytes, at a device-memory rate far below the streaming one.
-// A reorient's x is as large as the matrix's values (67 MB of fp32 at 2^24
-// nonzeros), larger than L2, so most reads miss.  The design:
+// memory for w bytes, and random sectors arrive at well under half the
+// streaming rate.  A reorient's x is as large as the matrix's values (67 MB
+// of fp32 at 2^24 nonzeros), larger than L2, so most reads miss: the
+// random reads, one sector an output and payload, bound the kernel.  The
+// design (graphblas_tpu_torch/tools/probe_permute.py measured each part):
 //
-//   * outputs in flight: each thread takes E outputs a tile-width apart
-//     (E = 8 on the main path), loads their E perm entries, then their E
-//     elements, then stores them: E independent random reads in flight a
-//     thread, and every perm load and out store of a warp coalesced;
-//   * L2-blocked passes (``passes`` > 1): pass s gathers only the outputs
-//     whose source index lies in the s-th of ``passes`` equal ranges of x,
-//     so that range stays in L2 while the pass reads it at random; perm is
-//     read again every pass, and each pass stores part of every output
-//     sector.  The wrapper chooses the number of passes from the bytes of
-//     x (graphblas_tpu_torch/tools/probe_permute.py measured the trade);
-//   * cache hints (flag 1): x's reads keep their lines in L2 with an
-//     evict_last policy and perm's stream past it with evict_first; the
-//     launcher puts x's lines back to evict_normal after the last pass, so
-//     later kernels keep the whole L2.
+//   * outputs in flight: each thread takes E = 4 outputs a tile-width
+//     apart, loads their perm entries, then their elements, then stores
+//     them: independent random reads in flight, every perm load and out
+//     store of a warp coalesced (8 a thread measured the same, 16 slower);
+//   * L2-blocked passes (``passes`` of 2 or 3, chosen by the wrapper from
+//     the bytes of x): pass s gathers only the outputs whose source lies in
+//     the s-th equal range of x, so that range stays in L2 while the pass
+//     reads it at random; x's reads keep their lines with an evict_last
+//     policy and perm's stream past them with evict_first (flag kHintX),
+//     and the launcher puts x's lines back to evict_normal after the last
+//     pass.  Each pass reads perm again and stores part of every output
+//     sector, which costs as much as a whole store pass: past three passes
+//     that costs more than the misses it saves;
+//   * two payloads as packed rows: when the first payload is 4 bytes (the
+//     reorient's row ids) and the second 1, 2, 4 or 8, a streaming pass
+//     packs both into one row of 8 or 16 bytes (``pairs``), and the gather
+//     reads one sector an output instead of two and stores the two halves
+//     to their outputs.
 //
 // The launcher returns cudaGetLastError(), launches on the stream it is
 // given, allocates nothing and does not synchronise.  The caller checks
@@ -47,20 +53,20 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPerThread = 4;  // outputs a thread (E)
 
 // flags of gb_permute_gather
 constexpr int kHintX = 1;     // x evict_last, perm evict_first
-constexpr int kStreamOut = 2; // out stores evict_first
 constexpr int kNoGather = 4;  // probe only: store the source index's low
                               // bits instead of x (wrong results; times the
                               // perm stream and the stores alone)
-constexpr int kMaskedPasses = 8;  // probe only: passes of the one-pass
-                                  // kernel, each storing the outputs whose
-                                  // source lies in its range of x
+constexpr int kNoPack = 8;    // probe only: two payloads gathered apart
 
 __device__ __forceinline__ uint64_t policy_last() {
   uint64_t p;
@@ -115,35 +121,19 @@ __device__ __forceinline__ uint64_t ld(const uint64_t* a, uint64_t pol) {
       : "=l"(v) : "l"(a), "l"(pol));
   return v;
 }
+__device__ __forceinline__ uint2 ld(const uint2* a, uint64_t pol) {
+  uint2 v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v2.u32 {%0, %1}, [%2], "
+      "%3;"
+      : "=r"(v.x), "=r"(v.y) : "l"(a), "l"(pol));
+  return v;
+}
 __device__ __forceinline__ uint4 ld(const uint4* a, uint64_t pol) {
   uint4 v;
   asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, "
       "[%4], %5;"
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(a), "l"(pol));
   return v;
-}
-
-__device__ __forceinline__ void st(uint8_t* a, uint8_t v, uint64_t pol) {
-  asm volatile("st.global.L2::cache_hint.u8 [%0], %1, %2;"
-               :: "l"(a), "r"(static_cast<uint32_t>(v)), "l"(pol)
-               : "memory");
-}
-__device__ __forceinline__ void st(uint16_t* a, uint16_t v, uint64_t pol) {
-  asm volatile("st.global.L2::cache_hint.u16 [%0], %1, %2;"
-               :: "l"(a), "h"(v), "l"(pol) : "memory");
-}
-__device__ __forceinline__ void st(uint32_t* a, uint32_t v, uint64_t pol) {
-  asm volatile("st.global.L2::cache_hint.u32 [%0], %1, %2;"
-               :: "l"(a), "r"(v), "l"(pol) : "memory");
-}
-__device__ __forceinline__ void st(uint64_t* a, uint64_t v, uint64_t pol) {
-  asm volatile("st.global.L2::cache_hint.u64 [%0], %1, %2;"
-               :: "l"(a), "l"(v), "l"(pol) : "memory");
-}
-__device__ __forceinline__ void st(uint4* a, uint4 v, uint64_t pol) {
-  asm volatile("st.global.L2::cache_hint.v4.u32 [%0], {%1, %2, %3, %4}, %5;"
-               :: "l"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(pol)
-               : "memory");
 }
 
 template <typename U>
@@ -163,64 +153,13 @@ struct Payload {
   int unit;  // log2 of the unit's bytes
 };
 
-// The E elements of one thread: E loads in flight, then E stores (one unit
-// an element), or a row of k units at a time for wider rows.
-template <typename U, typename P, int E>
-__device__ __forceinline__ void gather_tile(const Payload& pl,
-                                            const P (&src)[E], int64_t base,
-                                            uint64_t px, uint64_t po,
-                                            bool no_gather) {
-  const U* x = static_cast<const U*>(pl.x);
-  U* out = static_cast<U*>(pl.out);
-  if (pl.k == 1) {
-    U v[E];
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      v[e] = src[e] < 0 ? U{}
-             : no_gather ? low_bits<U>(src[e]) : ld(x + src[e], px);
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      if (src[e] >= 0) st(out + base + int64_t(e) * kThreads, v[e], po);
-    return;
-  }
-  for (int e = 0; e < E; ++e) {
-    if (src[e] < 0) continue;
-    const U* s = x + int64_t(src[e]) * pl.k;
-    U* d = out + (base + int64_t(e) * kThreads) * pl.k;
-    for (int64_t j = 0; j < pl.k; ++j)
-      st(d + j, no_gather ? low_bits<U>(src[e]) : ld(s + j, px), po);
-  }
-}
-
+// the perm entries of a thread's E outputs, -1 where the output lies past n
+// or its source outside [lo, hi)
 template <typename P, int E>
-__device__ __forceinline__ void gather_payload(const Payload& pl,
-                                               const P (&src)[E],
-                                               int64_t base, uint64_t px,
-                                               uint64_t po, bool no_gather) {
-  switch (pl.unit) {
-    case 0: gather_tile<uint8_t>(pl, src, base, px, po, no_gather); break;
-    case 1: gather_tile<uint16_t>(pl, src, base, px, po, no_gather); break;
-    case 2: gather_tile<uint32_t>(pl, src, base, px, po, no_gather); break;
-    case 3: gather_tile<uint64_t>(pl, src, base, px, po, no_gather); break;
-    default: gather_tile<uint4>(pl, src, base, px, po, no_gather); break;
-  }
-}
-
-// One pass over all n outputs: a block takes kThreads * E consecutive
-// outputs, thread t the outputs base + e * kThreads (e < E); outputs whose
-// source lies outside [lo, hi) are left for another pass.
-template <typename P, int E>
-__global__ void __launch_bounds__(kThreads)
-permute_gather_kernel(const P* __restrict__ perm, int64_t n, Payload a,
-                      Payload b, int two, int64_t lo, int64_t hi,
-                      int flags) {
-  const uint64_t px = (flags & kHintX) ? policy_last() : policy_normal();
-  const uint64_t pp = (flags & kHintX) ? policy_first() : policy_normal();
-  const uint64_t po = (flags & kStreamOut) ? policy_first()
-                                           : policy_normal();
-  const bool no_gather = (flags & kNoGather) != 0;
-  const int64_t base = int64_t(blockIdx.x) * (kThreads * E) + threadIdx.x;
-  P src[E];
+__device__ __forceinline__ void sources(const P* __restrict__ perm,
+                                        int64_t n, int64_t base, int64_t lo,
+                                        int64_t hi, P (&src)[E]) {
+  const uint64_t pp = policy_first();
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int64_t p = base + int64_t(e) * kThreads;
@@ -231,173 +170,130 @@ permute_gather_kernel(const P* __restrict__ perm, int64_t n, Payload a,
     }
     src[e] = i;
   }
-  gather_payload(a, src, base, px, po, no_gather);
-  if (two) gather_payload(b, src, base, px, po, no_gather);
 }
 
-// -- the bucketed passes: bucket, one gather per segment, unpermute ---------
-//
-// Tile b holds the kTile outputs [b kTile, (b + 1) kTile).  bucket_kernel
-// reorders each tile's sources by the segment of x they lie in: the tile's
-// slots [pre[b][s], pre[b][s + 1]) of bidx hold the sources in segment s,
-// bpos the output each came from (its place in the tile).  Pass s
-// (segment_gather_kernel) reads those slots, gathers from segment s alone,
-// which stays in L2 during the pass, and writes the values into out at the
-// same slots: every device-memory access of a pass is a run of whole
-// sectors.  unpermute_kernel then moves each tile's values from slot to
-// output through shared memory.
-
-constexpr int kTile = kThreads * 8;  // outputs a tile
-constexpr int kMaxSeg = 16;          // segments of x at most
-
-__device__ __forceinline__ unsigned lanes_below() {
-  unsigned m;
-  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-  return m;
-}
-
-template <typename P>
-__global__ void __launch_bounds__(kThreads)
-bucket_kernel(const P* __restrict__ perm, int64_t n, int32_t seg, int nseg,
-              int32_t* __restrict__ bidx, uint16_t* __restrict__ bpos,
-              int32_t* __restrict__ pre) {
-  __shared__ int cnt[kMaxSeg];
-  __shared__ int start[kMaxSeg + 1];
-  const int tid = threadIdx.x;
-  const int64_t t0 = int64_t(blockIdx.x) * kTile;
-  if (tid < kMaxSeg) cnt[tid] = 0;
-  __syncthreads();
-  const uint64_t pp = policy_first();
-  int32_t src[8];
-  int sg[8], slot[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int64_t p = t0 + e * kThreads + tid;
-    src[e] = p < n ? static_cast<int32_t>(ld(perm + p, pp)) : 0;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    sg[e] = t0 + e * kThreads + tid < n ? min(src[e] / seg, nseg - 1) : -1;
-    // one shared-memory atomic a segment a warp: its lanes of that segment
-    // take consecutive slots
-    const unsigned peers = __match_any_sync(0xffffffffu, sg[e]);
-    const int leader = __ffs(peers) - 1;
-    int base = 0;
-    if ((tid & 31) == leader && sg[e] >= 0)
-      base = atomicAdd(&cnt[sg[e]], __popc(peers));
-    base = __shfl_sync(0xffffffffu, base, leader);
-    slot[e] = base + __popc(peers & lanes_below());
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int a = 0;
-    for (int s = 0; s < nseg; ++s) {
-      start[s] = a;
-      a += cnt[s];
-    }
-    start[nseg] = a;
-  }
-  __syncthreads();
-  if (tid <= nseg) pre[int64_t(blockIdx.x) * (nseg + 1) + tid] = start[tid];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    if (sg[e] < 0) continue;
-    const int64_t k = t0 + start[sg[e]] + slot[e];
-    bidx[k] = src[e];
-    bpos[k] = static_cast<uint16_t>(e * kThreads + tid);
-  }
-}
-
-template <typename F>
-__device__ __forceinline__ void by_unit(int unit, F&& f) {
-  switch (unit) {
-    case 0: f(uint8_t{}); break;
-    case 1: f(uint16_t{}); break;
-    case 2: f(uint32_t{}); break;
-    case 3: f(uint64_t{}); break;
-    default: f(uint4{}); break;
-  }
-}
-
-// four slots of one payload: the values from x into out at the same slots
-template <typename U>
-__device__ __forceinline__ void gather4(const Payload& pl,
-                                        const int32_t (&i)[4], int64_t at,
-                                        uint64_t px, uint64_t po) {
+// The E elements of one thread: E loads in flight, then E stores (one unit
+// an element; outputs below n_full are stored even when their source lies
+// outside this pass's range, as zeros), or a row of k units at a time for
+// wider rows.
+template <typename U, typename P, int E>
+__device__ __forceinline__ void gather_tile(const Payload& pl,
+                                            const P (&src)[E], int64_t base,
+                                            int64_t n_full, uint64_t px,
+                                            bool no_gather) {
   const U* x = static_cast<const U*>(pl.x);
-  U* out = static_cast<U*>(pl.out) + at;
-  U v[4];
+  U* out = static_cast<U*>(pl.out);
+  if (pl.k == 1) {
+    U v[E];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = i[e] < 0 ? U{} : ld(x + i[e], px);
+    for (int e = 0; e < E; ++e)
+      v[e] = src[e] < 0 ? U{}
+             : no_gather ? low_bits<U>(src[e]) : ld(x + src[e], px);
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (i[e] >= 0) st(out + e * kThreads, v[e], po);
-}
-
-// pass s over tile b: slots [pre[b][s], pre[b][s + 1]), four a thread in
-// flight, the sources read once for both payloads
-__global__ void __launch_bounds__(kThreads)
-segment_gather_kernel(const int32_t* __restrict__ bidx,
-                      const int32_t* __restrict__ pre, int nseg, int s,
-                      Payload a, Payload b, int two, int flags) {
-  const uint64_t px = (flags & kHintX) ? policy_last() : policy_normal();
-  const uint64_t pp = policy_first();
-  const uint64_t po = (flags & kStreamOut) ? policy_first()
-                                           : policy_normal();
-  const int64_t t0 = int64_t(blockIdx.x) * kTile;
-  const int32_t* tp = pre + int64_t(blockIdx.x) * (nseg + 1) + s;
-  const int lo = tp[0], hi = tp[1];
-  for (int k0 = lo + threadIdx.x; k0 < hi; k0 += 4 * kThreads) {
-    int32_t i[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = k0 + e * kThreads;
-      i[e] = k < hi ? ld(bidx + t0 + k, pp) : -1;
+    for (int e = 0; e < E; ++e) {
+      const int64_t p = base + int64_t(e) * kThreads;
+      if (src[e] >= 0 || p < n_full) out[p] = v[e];
     }
-    by_unit(a.unit, [&](auto u) {
-      gather4<decltype(u)>(a, i, t0 + k0, px, po);
-    });
-    if (two)
-      by_unit(b.unit, [&](auto u) {
-        gather4<decltype(u)>(b, i, t0 + k0, px, po);
-      });
+    return;
+  }
+  for (int e = 0; e < E; ++e) {
+    if (src[e] < 0) continue;
+    const U* s = x + int64_t(src[e]) * pl.k;
+    U* d = out + (base + int64_t(e) * kThreads) * pl.k;
+    for (int64_t j = 0; j < pl.k; ++j)
+      d[j] = no_gather ? low_bits<U>(src[e]) : ld(s + j, px);
   }
 }
 
-// each tile's values from slot k to output bpos[k], through shared memory
-__global__ void __launch_bounds__(kThreads)
-unpermute_kernel(const uint16_t* __restrict__ bpos, int64_t n, Payload a,
-                 Payload b, int two) {
-  __shared__ uint4 sm[kTile];
-  const int64_t t0 = int64_t(blockIdx.x) * kTile;
-  const int cnt = n - t0 < kTile ? static_cast<int>(n - t0) : kTile;
-  int pos[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int k = e * kThreads + threadIdx.x;
-    pos[e] = k < cnt ? bpos[t0 + k] : 0;
-  }
-  for (int q = 0; q <= two; ++q) {
-    const Payload& pl = q ? b : a;
-    by_unit(pl.unit, [&](auto u) {
-      using U = decltype(u);
-      U* tile = reinterpret_cast<U*>(sm);
-      U* out = static_cast<U*>(pl.out) + t0;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int k = e * kThreads + threadIdx.x;
-        if (k < cnt) tile[pos[e]] = out[k];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int k = e * kThreads + threadIdx.x;
-        if (k < cnt) out[k] = tile[k];
-      }
-      __syncthreads();
-    });
+template <typename P, int E>
+__device__ __forceinline__ void gather_payload(const Payload& pl,
+                                               const P (&src)[E],
+                                               int64_t base, int64_t n_full,
+                                               uint64_t px, bool no_gather) {
+  switch (pl.unit) {
+    case 0: gather_tile<uint8_t>(pl, src, base, n_full, px, no_gather); break;
+    case 1: gather_tile<uint16_t>(pl, src, base, n_full, px, no_gather); break;
+    case 2: gather_tile<uint32_t>(pl, src, base, n_full, px, no_gather); break;
+    case 3: gather_tile<uint64_t>(pl, src, base, n_full, px, no_gather); break;
+    default: gather_tile<uint4>(pl, src, base, n_full, px, no_gather); break;
   }
 }
+
+// One pass over all n outputs: a block takes kThreads * E consecutive
+// outputs, thread t the outputs base + e * kThreads (e < E); outputs whose
+// source lies outside [lo, hi) are left for another pass.  The first of
+// several passes (lo == 0) stores every output, so that its stores are
+// whole sectors and the later passes only patch them.
+template <typename P, int E>
+__global__ void __launch_bounds__(kThreads)
+permute_gather_kernel(const P* __restrict__ perm, int64_t n, Payload a,
+                      Payload b, int two, int64_t lo, int64_t hi,
+                      int flags) {
+  const uint64_t px = (flags & kHintX) ? policy_last() : policy_normal();
+  const bool no_gather = (flags & kNoGather) != 0;
+  const int64_t base = int64_t(blockIdx.x) * (kThreads * E) + threadIdx.x;
+  const int64_t n_full = lo == 0 ? n : 0;
+  P src[E];
+  sources(perm, n, base, lo, hi, src);
+  gather_payload(a, src, base, n_full, px, no_gather);
+  if (two) gather_payload(b, src, base, n_full, px, no_gather);
+}
+
+// -- two payloads as packed rows: 4-byte ids and a value of 1 to 8 bytes ---
+
+template <typename V>
+struct alignas(sizeof(V) > 4 ? 16 : 8) Pair {
+  uint32_t id;
+  V val;
+};
+template <typename V>
+using PairWord =
+    typename std::conditional<sizeof(Pair<V>) == 16, uint4, uint2>::type;
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const uint32_t* __restrict__ ids, const V* __restrict__ vals,
+            Pair<V>* __restrict__ pairs, int64_t nx) {
+  const int64_t q = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (q < nx) {
+    Pair<V> r{};
+    r.id = ids[q];
+    r.val = vals[q];
+    PairWord<V> w;  // one 8- or 16-byte store
+    memcpy(&w, &r, sizeof(r));
+    reinterpret_cast<PairWord<V>*>(pairs)[q] = w;
+  }
+}
+
+template <typename P, typename V, int E>
+__global__ void __launch_bounds__(kThreads)
+gather_pairs_kernel(const P* __restrict__ perm, int64_t n,
+                    const Pair<V>* __restrict__ pairs,
+                    uint32_t* __restrict__ out_ids, V* __restrict__ out_vals,
+                    int64_t lo, int64_t hi, int flags) {
+  using W = PairWord<V>;
+  const uint64_t px = (flags & kHintX) ? policy_last() : policy_normal();
+  const int64_t base = int64_t(blockIdx.x) * (kThreads * E) + threadIdx.x;
+  P src[E];
+  sources(perm, n, base, lo, hi, src);
+  W w[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    w[e] = src[e] < 0 ? W{}
+                      : ld(reinterpret_cast<const W*>(pairs + src[e]), px);
+  const int64_t n_full = lo == 0 ? n : 0;  // as permute_gather_kernel
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int64_t p = base + int64_t(e) * kThreads;
+    if (src[e] < 0 && p >= n_full) continue;
+    Pair<V> r;
+    memcpy(&r, &w[e], sizeof(r));
+    out_ids[p] = r.id;
+    out_vals[p] = r.val;
+  }
+}
+
+// -- launchers ---------------------------------------------------------------
 
 // x's lines back to evict_normal after the passes that kept them evict_last
 __global__ void __launch_bounds__(kThreads)
@@ -431,103 +327,133 @@ Payload payload(const void* x, void* out, int64_t w) {
   return Payload{x, out, w >> unit, unit};
 }
 
-template <typename P, int E>
-cudaError_t launch(const void* perm, int64_t n, Payload a, Payload b,
-                   int two, int64_t lo, int64_t hi, int flags,
-                   cudaStream_t stream) {
-  const int64_t blocks = (n + int64_t(kThreads) * E - 1) / (kThreads * E);
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  permute_gather_kernel<P, E><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                stream>>>(static_cast<const P*>(perm), n, a,
-                                          b, two, lo, hi, flags);
-  return cudaGetLastError();
+// the grid of a pass over n outputs, ``per_thread`` a thread (0 when too
+// large)
+unsigned grid(int64_t n, int per_thread = kPerThread) {
+  const int64_t tile = int64_t(kThreads) * per_thread;
+  const int64_t blocks = (n + tile - 1) / tile;
+  return blocks > 0x7fffffff ? 0u : static_cast<unsigned>(blocks);
+}
+
+// one launch(lo, hi) for each [lo, hi) of ``passes`` equal ranges of
+// [0, nx), or one unbounded when passes == 1
+template <typename F>
+cudaError_t by_pass(int64_t nx, int64_t passes, F&& launch) {
+  const int64_t seg = (nx + passes - 1) / passes;
+  for (int64_t lo = 0; lo < nx; lo += seg) {
+    launch(passes == 1 ? INT64_MIN : lo, passes == 1 ? INT64_MAX : lo + seg);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 template <typename P>
-cudaError_t launch_bucketed(const void* perm, int64_t n, Payload a,
-                            Payload b, int two, int64_t nx, int nseg,
-                            int flags, int32_t* bidx, uint16_t* bpos,
-                            int32_t* pre, cudaStream_t stream) {
-  const int64_t tiles = (n + kTile - 1) / kTile;
-  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
-  const auto grid = static_cast<unsigned>(tiles);
-  const auto seg = static_cast<int32_t>((nx + nseg - 1) / nseg);
-  bucket_kernel<P><<<grid, kThreads, 0, stream>>>(
-      static_cast<const P*>(perm), n, seg, nseg, bidx, bpos, pre);
-  for (int s = 0; s < nseg; ++s)
-    segment_gather_kernel<<<grid, kThreads, 0, stream>>>(bidx, pre, nseg, s,
-                                                         a, b, two, flags);
-  unpermute_kernel<<<grid, kThreads, 0, stream>>>(bpos, n, a, b, two);
-  return cudaGetLastError();
+cudaError_t launch_rows(const void* perm, int64_t n, Payload a, Payload b,
+                        int two, int64_t nx, int64_t passes, int flags,
+                        cudaStream_t s) {
+  const unsigned g = grid(n);
+  if (!g) return cudaErrorInvalidValue;
+  return by_pass(nx, passes, [&](int64_t lo, int64_t hi) {
+    permute_gather_kernel<P, kPerThread><<<g, kThreads, 0, s>>>(
+        static_cast<const P*>(perm), n, a, b, two, lo, hi, flags);
+  });
+}
+
+template <typename P, typename V>
+cudaError_t launch_pairs(const void* perm, int64_t n, Payload a, Payload b,
+                         int64_t nx, int64_t passes, int flags, void* pairs,
+                         cudaStream_t s) {
+  auto* pr = static_cast<Pair<V>*>(pairs);
+  const unsigned g = grid(n), gx = grid(nx, 1);
+  if (!g || !gx) return cudaErrorInvalidValue;
+  pack_kernel<V><<<gx, kThreads, 0, s>>>(static_cast<const uint32_t*>(a.x),
+                                        static_cast<const V*>(b.x), pr, nx);
+  return by_pass(nx, passes, [&](int64_t lo, int64_t hi) {
+    gather_pairs_kernel<P, V, kPerThread><<<g, kThreads, 0, s>>>(
+        static_cast<const P*>(perm), n, pr, static_cast<uint32_t*>(a.out),
+        static_cast<V*>(b.out), lo, hi, flags);
+  });
 }
 
 template <typename P>
-cudaError_t launch_e(int per_thread, const void* perm, int64_t n, Payload a,
-                     Payload b, int two, int64_t lo, int64_t hi, int flags,
-                     cudaStream_t s) {
-  switch (per_thread) {
-    case 4: return launch<P, 4>(perm, n, a, b, two, lo, hi, flags, s);
-    case 8: return launch<P, 8>(perm, n, a, b, two, lo, hi, flags, s);
-    case 16: return launch<P, 16>(perm, n, a, b, two, lo, hi, flags, s);
-    default: return cudaErrorInvalidValue;
+cudaError_t launch_pairs_by_width(const void* perm, int64_t n, Payload a,
+                                  Payload b, int64_t nx, int64_t passes,
+                                  int flags, void* pairs, cudaStream_t s) {
+  switch (b.unit) {
+    case 0:
+      return launch_pairs<P, uint8_t>(perm, n, a, b, nx, passes, flags,
+                                      pairs, s);
+    case 1:
+      return launch_pairs<P, uint16_t>(perm, n, a, b, nx, passes, flags,
+                                       pairs, s);
+    case 2:
+      return launch_pairs<P, uint32_t>(perm, n, a, b, nx, passes, flags,
+                                       pairs, s);
+    default:
+      return launch_pairs<P, uint64_t>(perm, n, a, b, nx, passes, flags,
+                                       pairs, s);
   }
 }
 
 }  // namespace
 
+// Bytes of the packed row of two payloads of w0 and w1 bytes (0: they are
+// gathered apart): the ``pairs`` scratch holds nx such rows.
+extern "C" int64_t gb_permute_pair_bytes(int64_t w0, int64_t w1) {
+  if (w0 != 4) return 0;
+  switch (w1) {
+    case 1: case 2: case 4: return 8;
+    case 8: return 16;
+    default: return 0;
+  }
+}
+
 // out0[p] = x0[perm[p]] (rows of w0 bytes) for p < n and, when w1 > 0,
-// out1[p] = x1[perm[p]] (rows of w1 bytes) in the same launch.  perm holds
+// out1[p] = x1[perm[p]] (rows of w1 bytes) in the same call.  perm holds
 // perm_bytes = 4 or 8 byte signed indices into the nx rows of x0 (and x1).
-// passes >= 1: the number of L2-blocked passes; with passes > 1, rows of at
-// most 16 bytes that their addresses align and nx < 2^31, the bucketed
-// passes (scratch: bidx and bpos of n slots, pre of ceil(n / kTile) *
-// (passes + 1) entries, passes <= kMaxSeg), else one pass (kMaskedPasses:
-// that many masked passes of the one-pass kernel, the probe's comparison).
-// per_thread: outputs a thread of the one-pass kernel, 4, 8 or 16; flags:
-// kHintX | kStreamOut (| kNoGather | kMaskedPasses, probe only).
+// passes >= 1: L2-blocked passes, each over its range of the gathered rows;
+// flags: kHintX (| kNoGather | kNoPack, probe only); pairs: 16-byte aligned
+// scratch of nx packed rows (gb_permute_pair_bytes) where the two payloads
+// pack (both aligned to their widths), else unused.
 extern "C" int gb_permute_gather(const void* perm, int perm_bytes, int64_t n,
                                  const void* x0, void* out0, int64_t w0,
                                  const void* x1, void* out1, int64_t w1,
-                                 int64_t nx, int64_t passes, int per_thread,
-                                 int flags, void* bidx, void* bpos, void* pre,
-                                 void* stream) {
+                                 int64_t nx, int64_t passes, int flags,
+                                 void* pairs, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   if ((perm_bytes != 4 && perm_bytes != 8) || w0 <= 0 || w1 < 0 ||
       nx <= 0 || passes < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if (passes == 1) flags &= ~kHintX;  // nothing to keep between passes
   const Payload a = payload(x0, out0, w0);
   const int two = w1 > 0;
   const Payload b = two ? payload(x1, out1, w1) : a;
-  cudaError_t e = cudaSuccess;
-  const bool masked = (flags & kMaskedPasses) != 0;
-  if (passes > 1 && !masked && a.k == 1 && b.k == 1 && nx < 0x7fffffff) {
-    if (passes > kMaxSeg || !bidx || !bpos || !pre)
-      return static_cast<int>(cudaErrorInvalidValue);
-    auto* bi = static_cast<int32_t*>(bidx);
-    auto* bp = static_cast<uint16_t*>(bpos);
-    auto* pr = static_cast<int32_t*>(pre);
+  const bool pack = two && !(flags & kNoPack) &&
+                    gb_permute_pair_bytes(w0, w1) && a.k == 1 && b.k == 1;
+  if (pack && (!pairs || reinterpret_cast<uintptr_t>(pairs) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
+  if (pack)
     e = perm_bytes == 4
-            ? launch_bucketed<int32_t>(perm, n, a, b, two, nx, int(passes),
-                                       flags, bi, bp, pr, s)
-            : launch_bucketed<int64_t>(perm, n, a, b, two, nx, int(passes),
-                                       flags, bi, bp, pr, s);
-  } else {  // one pass, or the probe's masked passes
-    const int64_t np = masked ? passes : 1;
-    const int64_t seg = (nx + np - 1) / np;
-    for (int64_t lo = 0; lo < nx && e == cudaSuccess; lo += seg) {
-      const int64_t hi = np == 1 ? INT64_MAX : lo + seg;
-      const int64_t from = np == 1 ? INT64_MIN : lo;
-      e = perm_bytes == 4
-              ? launch_e<int32_t>(per_thread, perm, n, a, b, two, from, hi,
-                                  flags, s)
-              : launch_e<int64_t>(per_thread, perm, n, a, b, two, from, hi,
-                                  flags, s);
-    }
-  }
+            ? launch_pairs_by_width<int32_t>(perm, n, a, b, nx, passes,
+                                             flags, pairs, s)
+            : launch_pairs_by_width<int64_t>(perm, n, a, b, nx, passes,
+                                             flags, pairs, s);
+  else
+    e = perm_bytes == 4
+            ? launch_rows<int32_t>(perm, n, a, b, two, nx, passes, flags,
+                                   s)
+            : launch_rows<int64_t>(perm, n, a, b, two, nx, passes, flags,
+                                   s);
   if (e == cudaSuccess && (flags & kHintX)) {
-    e = demote(x0, nx * w0, s);
-    if (e == cudaSuccess && two) e = demote(x1, nx * w1, s);
+    if (pack) {
+      e = demote(pairs, nx * gb_permute_pair_bytes(w0, w1), s);
+    } else {
+      e = demote(x0, nx * w0, s);
+      if (e == cudaSuccess && two) e = demote(x1, nx * w1, s);
+    }
   }
   return static_cast<int>(e == cudaSuccess ? cudaGetLastError() : e);
 }

@@ -113,9 +113,11 @@ def _bind_sortreduce(so) -> None:
 
 def _bind_permute(so) -> None:
     P, I, C = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    so.gb_permute_gather.argtypes = [P, C, I, P, P, I, P, P, I, I, I, C, C,
-                                     P, P, P, P]
+    so.gb_permute_gather.argtypes = [P, C, I, P, P, I, P, P, I, I, I, C, P,
+                                     P]
     so.gb_permute_gather.restype = ctypes.c_int
+    so.gb_permute_pair_bytes.argtypes = [I, I]
+    so.gb_permute_pair_bytes.restype = I
 
 
 _BIND = {"spmv": _bind_spmv, "sortreduce": _bind_sortreduce,
@@ -258,31 +260,22 @@ def sort_reduce_info(mode: str, C: int) -> dict:
                      "dynamic_smem"), out))
 
 
-PERMUTE_TILE = 2048    # outputs a tile of the bucketed passes: kTile
-PERMUTE_MAX_PASSES = 16   # kMaxSeg in permute.cu
-
-
 def permute_gather(perm, xs, outs, row_bytes, nx: int, passes: int,
-                   per_thread: int, flags: int, so=None) -> None:
+                   flags: int) -> None:
     """K9: outs[k][p] = xs[k][perm[p]] for one or two payloads (rows of
     ``row_bytes[k]`` bytes) through one int32 or int64 ``perm``, on one
-    card, in ``passes`` L2-blocked passes (``csrc/permute.cu``; with more
-    than one, the bucketed passes' scratch is allocated here; ``so``:
-    another build of it, bound by ``_bind_permute``)."""
+    card, in ``passes`` L2-blocked passes (``csrc/permute.cu``; two
+    payloads that pack into one row get their scratch here)."""
+    so = lib("permute")
     dev = perm.device
-    n = perm.numel()
     (x0, x1), (o0, o1) = (list(xs) + [None])[:2], (list(outs) + [None])[:2]
     w1 = row_bytes[1] if len(xs) > 1 else 0
-    scratch = (None, None, None)
-    if passes > 1:
-        tiles = -(-n // PERMUTE_TILE)
-        scratch = (torch.empty(n, dtype=torch.int32, device=dev),
-                   torch.empty(n, dtype=torch.int16, device=dev),
-                   torch.empty(tiles * (passes + 1), dtype=torch.int32,
-                               device=dev))
+    pair = so.gb_permute_pair_bytes(row_bytes[0], w1) if w1 else 0
+    pairs = torch.empty(nx * pair, dtype=torch.uint8, device=dev) \
+        if pair else None
     with torch.cuda.device(dev):
-        err = (so or lib("permute")).gb_permute_gather(
-            perm.data_ptr(), perm.element_size(), n, x0.data_ptr(),
-            o0.data_ptr(), row_bytes[0], _ptr(x1), _ptr(o1), w1, nx,
-            passes, per_thread, flags, *map(_ptr, scratch), _stream(dev))
+        err = so.gb_permute_gather(
+            perm.data_ptr(), perm.element_size(), perm.numel(),
+            x0.data_ptr(), o0.data_ptr(), row_bytes[0], _ptr(x1), _ptr(o1),
+            w1, nx, passes, flags, _ptr(pairs), _stream(dev))
     _check(err, "permute_gather", "permute")

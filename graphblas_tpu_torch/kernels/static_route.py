@@ -38,12 +38,13 @@ from . import _cuda
 
 LANES = 128
 
-# K9's launch shape on the card (graphblas_tpu_torch/tools/probe_permute.py
-# chose it; PERF.md gives its times): outputs a thread, bytes of x's rows a
-# pass keeps in L2 (0: one pass over all outputs), cache hints
-PER_THREAD = 8
-PASS_BYTES = 0
-FLAGS = 0
+# K9's passes on the card (graphblas_tpu_torch/tools/probe_permute.py chose
+# them; PERF.md gives its times): bytes of gathered rows a pass keeps in L2,
+# and at most MAX_PASSES such passes (more sources than that take one
+# pass); the cache hints of the passes
+PASS_BYTES = 24 << 20
+MAX_PASSES = 3
+FLAGS = 1
 
 # calls of the CUDA kernel, all its passes one call (CPU calls run the
 # plain version, uncounted)
@@ -94,10 +95,8 @@ def permute_plain(x, perm, *more):
 def passes_for(nx: int, row_bytes) -> int:
     """L2-blocked passes for sources of ``nx`` rows of ``sum(row_bytes)``
     bytes."""
-    if not PASS_BYTES:
-        return 1
-    return max(1, min(_cuda.PERMUTE_MAX_PASSES,
-                      -(-nx * sum(row_bytes) // PASS_BYTES)))
+    passes = -(-nx * sum(row_bytes) // PASS_BYTES)
+    return passes if 1 < passes <= MAX_PASSES else 1
 
 
 def permute_rows(x, perm, *more):
@@ -135,7 +134,7 @@ def permute_rows(x, perm, *more):
         if not nx:
             raise ValueError("permute_rows: indices into an empty payload")
         _cuda.permute_gather(perm, xs, outs, row_bytes, nx,
-                             passes_for(nx, row_bytes), PER_THREAD, FLAGS)
+                             passes_for(nx, row_bytes), FLAGS)
         global launches
         launches += 1
     return outs if more else outs[0]

@@ -11,18 +11,17 @@ out-edges a vertex, seed 0: 16,777,086 nonzeros), the order that the
 reorient's stable ``torch.sort`` of the column indices gives (int64, and
 as int32):
 
-  * one payload, fp32 and fp64, int32 and int64 perm: 4, 8 or 16 outputs
-    a thread in one pass; 2-6 masked passes (flag 8: each pass stores the
-    outputs whose source lies in its range of x) without and with the
-    cache hints (flag 1: x evict_last, perm evict_first); 2-16 bucketed
-    passes (bucket, a gather a segment, unpermute) with no hints, flag 1,
-    and evict_first stores too (flag 3);
+  * one payload, fp32 and fp64, int32 and int64 perm: one pass; 2, 3, 4
+    or 6 L2-blocked passes (each stores the outputs whose source lies in
+    its range of x) without and with the cache hints (flag 1: x
+    evict_last, perm evict_first);
   * two payloads, the reorient's (int32 row ids with fp32 or fp64 values,
-    the int64 order): one pass, 3 masked passes, 2-16 bucketed passes;
-  * the stores alone (flag 4: the perm stream and the masked stores of
-    each pass, no x read) in 1, 3 and 6 masked passes;
-  * the device time of each kernel of the bucketed passes (torch.profiler)
-    at 3 and 6 passes;
+    the int64 order), packed into one row of 8 or 16 bytes and gathered
+    apart (flag 8), in one pass and in 2 or 3 passes;
+  * the stores alone (flag 4: the perm stream and the stores of each
+    pass, no x read) in 1, 3 and 6 passes;
+  * the device time of each kernel a call launches (torch.profiler) for
+    fp32 in 3 passes and for the packed two payloads;
   * beside them: the baseline, ``torch.take`` (int64 perm), ``x[perm]``
     (int32), the reorient's former two library gathers (``vecid[order]``
     and ``types.take(vals, order)``) and its stable sort.
@@ -50,7 +49,6 @@ from graphblas_tpu_torch.kernels import _cuda  # noqa: E402
 from graphblas_tpu_torch.kernels import segment as K  # noqa: E402
 
 HBM_BYTES_S = 3.35e12
-BUCKETED = (2, 3, 4, 6, 8, 12, 16)
 
 
 def graph_a():
@@ -116,12 +114,12 @@ def by_kernel(label, fn, calls=10):
         flush=True)
 
 
-def kernel(perm, xs, passes, per_thread, flags):
+def kernel(perm, xs, passes, flags):
     """One call of the package's K9 entry with this launch shape."""
     outs = [torch.empty_like(x) for x in xs]
     rb = [x.element_size() * x[0].numel() for x in xs]
     return lambda: _cuda.permute_gather(perm, xs, outs, rb, xs[0].shape[0],
-                                        passes, per_thread, flags), outs
+                                        passes, flags), outs
 
 
 def main():
@@ -161,19 +159,13 @@ def main():
         for pn, perm in perms.items():
             want = [x[perm.long()]]
             nb = n * (perm.element_size() + 2 * x.element_size())
-            for e in (4, 8, 16):
-                checked(f"1 payload {vn} perm {pn} one pass E={e}",
-                        *kernel(perm, [x], 1, e, 0), want, nb)
+            checked(f"1 payload {vn} perm {pn} one pass",
+                    *kernel(perm, [x], 1, 0), want, nb)
             for passes in (2, 3, 4, 6):
-                for flags in (8, 9):
-                    checked(f"1 payload {vn} perm {pn} masked passes="
-                            f"{passes} flags={flags}",
-                            *kernel(perm, [x], passes, 8, flags), want, nb)
-            for passes in BUCKETED:
-                for flags in (0, 1, 3):
-                    checked(f"1 payload {vn} perm {pn} bucketed passes="
-                            f"{passes} flags={flags}",
-                            *kernel(perm, [x], passes, 8, flags), want, nb)
+                for flags in (0, 1):
+                    checked(f"1 payload {vn} perm {pn} passes={passes} "
+                            f"flags={flags}",
+                            *kernel(perm, [x], passes, flags), want, nb)
             if pn == "i64":
                 record(f"torch.take {vn} (int64 perm)",
                        lambda x=x, p=perm: torch.take(x, p), nb)
@@ -183,27 +175,24 @@ def main():
         want = [vecid[order], x[order]]
         nb = n * (8 + 2 * (4 + x.element_size()))
         two = [vecid, x]
-        checked(f"2 payloads int32 + {vn} perm i64 one pass E=8",
-                *kernel(order, two, 1, 8, 0), want, nb)
-        checked(f"2 payloads int32 + {vn} perm i64 masked passes=3 flags=9",
-                *kernel(order, two, 3, 8, 9), want, nb)
-        for passes in BUCKETED:
-            for flags in (0, 1):
-                checked(f"2 payloads int32 + {vn} perm i64 bucketed passes="
-                        f"{passes} flags={flags}",
-                        *kernel(order, two, passes, 8, flags), want, nb)
+        for flags, how in ((0, "packed"), (8, "apart")):
+            checked(f"2 payloads int32 + {vn} perm i64 {how} one pass",
+                    *kernel(order, two, 1, flags), want, nb)
+            for passes in (2, 3):
+                checked(f"2 payloads int32 + {vn} perm i64 {how} passes="
+                        f"{passes} flags={flags + 1}",
+                        *kernel(order, two, passes, flags + 1), want, nb)
         record(f"library: vecid[order] + types.take({vn}, order)",
                lambda x=x: (vecid[order], T.take(x, order)), nb)
     for passes in (1, 3, 6):
-        fn, _ = kernel(perms["i32"], [x32], passes, 8, 12)
-        record(f"stores alone fp32 perm i32 masked passes={passes} (flags "
-               f"12)", fn, n * 8)
-    for label, perm, xs in (("1 payload fp32 perm i32", perms["i32"], [x32]),
-                            ("2 payloads int32 + fp32 perm i64", order,
-                             [vecid, x32])):
-        for passes in (3, 6):
-            by_kernel(f"{label} bucketed passes={passes} flags=1",
-                      kernel(perm, xs, passes, 8, 1)[0])
+        fn, _ = kernel(perms["i32"], [x32], passes, 4)
+        record(f"stores alone fp32 perm i32 passes={passes} (flags 4)", fn,
+               n * 8)
+    by_kernel("1 payload fp32 perm i32 passes=3 flags=1",
+              kernel(perms["i32"], [x32], 3, 1)[0])
+    for vn, x in vals.items():
+        by_kernel(f"2 payloads int32 + {vn} perm i64 packed one pass",
+                  kernel(order, [vecid, x], 1, 0)[0])
     if args.baseline:
         so = build_baseline(args.baseline)
         out = torch.empty_like(x32)

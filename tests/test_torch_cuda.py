@@ -363,8 +363,9 @@ def test_permute_gather_matches_plain(cuda_device, n, dtype):
 def test_permute_rows_matches_plain(cuda_device, kind, pdt):
     """K9 at every payload width, alone and beside the int32 row ids, on
     an odd tail, from a source and into outputs one row past their
-    alignment, in one pass and in three L2-blocked passes (bucketed, and
-    masked) with each cache hint: bitwise the plain version, and bitwise
+    alignment (so the row ids and values pack only where both are
+    aligned), in one and in three L2-blocked passes, with and without the
+    cache hints and the packing: bitwise the plain version, and bitwise
     again on a second call."""
     rng = np.random.default_rng(90)
     n = (1 << 16) + 37
@@ -385,9 +386,9 @@ def test_permute_rows_matches_plain(cuda_device, kind, pdt):
     rb = [4, x.element_size() * x[0].numel()]
     xs = [GT.shifted(idc, 1), GT.shifted(xc, 1)]
     for passes in (1, 3):
-        for flags in (0, 1, 3, 9):          # 9: the probe's masked passes
+        for flags in (0, 1, 8, 9):   # cache hints; 8: the payloads unpacked
             outs = [GT.shifted(torch.zeros_like(t), 1) for t in (idc, xc)]
-            _cuda.permute_gather(pc, xs, outs, rb, n, passes, 8, flags)
+            _cuda.permute_gather(pc, xs, outs, rb, n, passes, flags)
             torch.cuda.synchronize()
             assert GT.same_bits(outs[0], want_ids), (passes, flags)
             assert GT.same_bits(outs[1], want_x), (passes, flags)
