@@ -173,14 +173,11 @@ __device__ __forceinline__ void sources(const P* __restrict__ perm,
 }
 
 // The E elements of one thread: E loads in flight, then E stores (one unit
-// an element; outputs below n_full are stored even when their source lies
-// outside this pass's range, as zeros), or a row of k units at a time for
-// wider rows.
+// an element), or a row of k units at a time for wider rows.
 template <typename U, typename P, int E>
 __device__ __forceinline__ void gather_tile(const Payload& pl,
                                             const P (&src)[E], int64_t base,
-                                            int64_t n_full, uint64_t px,
-                                            bool no_gather) {
+                                            uint64_t px, bool no_gather) {
   const U* x = static_cast<const U*>(pl.x);
   U* out = static_cast<U*>(pl.out);
   if (pl.k == 1) {
@@ -190,10 +187,8 @@ __device__ __forceinline__ void gather_tile(const Payload& pl,
       v[e] = src[e] < 0 ? U{}
              : no_gather ? low_bits<U>(src[e]) : ld(x + src[e], px);
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int64_t p = base + int64_t(e) * kThreads;
-      if (src[e] >= 0 || p < n_full) out[p] = v[e];
-    }
+    for (int e = 0; e < E; ++e)
+      if (src[e] >= 0) out[base + int64_t(e) * kThreads] = v[e];
     return;
   }
   for (int e = 0; e < E; ++e) {
@@ -208,22 +203,20 @@ __device__ __forceinline__ void gather_tile(const Payload& pl,
 template <typename P, int E>
 __device__ __forceinline__ void gather_payload(const Payload& pl,
                                                const P (&src)[E],
-                                               int64_t base, int64_t n_full,
-                                               uint64_t px, bool no_gather) {
+                                               int64_t base, uint64_t px,
+                                               bool no_gather) {
   switch (pl.unit) {
-    case 0: gather_tile<uint8_t>(pl, src, base, n_full, px, no_gather); break;
-    case 1: gather_tile<uint16_t>(pl, src, base, n_full, px, no_gather); break;
-    case 2: gather_tile<uint32_t>(pl, src, base, n_full, px, no_gather); break;
-    case 3: gather_tile<uint64_t>(pl, src, base, n_full, px, no_gather); break;
-    default: gather_tile<uint4>(pl, src, base, n_full, px, no_gather); break;
+    case 0: gather_tile<uint8_t>(pl, src, base, px, no_gather); break;
+    case 1: gather_tile<uint16_t>(pl, src, base, px, no_gather); break;
+    case 2: gather_tile<uint32_t>(pl, src, base, px, no_gather); break;
+    case 3: gather_tile<uint64_t>(pl, src, base, px, no_gather); break;
+    default: gather_tile<uint4>(pl, src, base, px, no_gather); break;
   }
 }
 
 // One pass over all n outputs: a block takes kThreads * E consecutive
 // outputs, thread t the outputs base + e * kThreads (e < E); outputs whose
-// source lies outside [lo, hi) are left for another pass.  The first of
-// several passes (lo == 0) stores every output, so that its stores are
-// whole sectors and the later passes only patch them.
+// source lies outside [lo, hi) are left for another pass.
 template <typename P, int E>
 __global__ void __launch_bounds__(kThreads)
 permute_gather_kernel(const P* __restrict__ perm, int64_t n, Payload a,
@@ -232,11 +225,10 @@ permute_gather_kernel(const P* __restrict__ perm, int64_t n, Payload a,
   const uint64_t px = (flags & kHintX) ? policy_last() : policy_normal();
   const bool no_gather = (flags & kNoGather) != 0;
   const int64_t base = int64_t(blockIdx.x) * (kThreads * E) + threadIdx.x;
-  const int64_t n_full = lo == 0 ? n : 0;
   P src[E];
   sources(perm, n, base, lo, hi, src);
-  gather_payload(a, src, base, n_full, px, no_gather);
-  if (two) gather_payload(b, src, base, n_full, px, no_gather);
+  gather_payload(a, src, base, px, no_gather);
+  if (two) gather_payload(b, src, base, px, no_gather);
 }
 
 // -- two payloads as packed rows: 4-byte ids and a value of 1 to 8 bytes ---
@@ -281,15 +273,13 @@ gather_pairs_kernel(const P* __restrict__ perm, int64_t n,
   for (int e = 0; e < E; ++e)
     w[e] = src[e] < 0 ? W{}
                       : ld(reinterpret_cast<const W*>(pairs + src[e]), px);
-  const int64_t n_full = lo == 0 ? n : 0;  // as permute_gather_kernel
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    const int64_t p = base + int64_t(e) * kThreads;
-    if (src[e] < 0 && p >= n_full) continue;
+    if (src[e] < 0) continue;
     Pair<V> r;
     memcpy(&r, &w[e], sizeof(r));
-    out_ids[p] = r.id;
-    out_vals[p] = r.val;
+    out_ids[base + int64_t(e) * kThreads] = r.id;
+    out_vals[base + int64_t(e) * kThreads] = r.val;
   }
 }
 
