@@ -183,8 +183,9 @@ KERNELS = {   # key: (name, source, TPU kernel replaced)
     "K8@32768": ("sort_reduce_cluster_regs_kernel + key2 "
                  "(sort_reduce_rows_wide, C=32768)", SR_SRC,
                  "graphblas_tpu/kernels/sortreduce.py:435"),
-    "K9": ("gb_permute_gather (permute_rows: the CSR <-> CSC reorient, "
-           "global_permute, tile_permute, sublane_permute)", PERMUTE_SRC,
+    "K9": ("gb_permute_route / gb_permute_gather (global_permute "
+           "through a plan; permute_rows: the CSR <-> CSC reorient, "
+           "tile_permute, sublane_permute)", PERMUTE_SRC,
            "graphblas_tpu/kernels/static_route.py:580"),
 }
 BIG_C = 32768
@@ -1087,8 +1088,8 @@ def phase_permute(card, errs):
     launches = STR.launches
     assert launches > 0
     print(f"[13 permute] {card} | {KERNELS['K9'][0]} on {nnz} elements "
-          f"(graph (a) CSR -> CSC; {STR.passes_for(nnz, [4])} L2-blocked "
-          f"passes for fp32 alone) | " + " | ".join(lines)
+          f"(graph (a) CSR -> CSC; one payload through the plan's "
+          f"two-phase route, two packed into one row) | " + " | ".join(lines)
           + f" | launches {launches}; exact vs plain and scipy, "
           f"bitwise repeatable", flush=True)
     return launches, out

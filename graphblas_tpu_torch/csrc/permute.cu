@@ -44,7 +44,12 @@
 //     reorient's row ids) and the second 1, 2, 4 or 8, a streaming pass
 //     packs both into one row of 8 or 16 bytes (``pairs``), and the gather
 //     reads one sector an output instead of two and stores the two halves
-//     to their outputs.
+//     to their outputs;
+//   * a permutation reused through a plan (GlobalPermutePlan) takes the
+//     two-phase route (gb_permute_route below), the Hopper form of the JAX
+//     global_permute's two Clos passes: with the plan built once, no read
+//     is random.  A fresh permutation (the reorient's) cannot pay for a
+//     plan: building one sorts twice and scatters once.
 //
 // The launcher returns cudaGetLastError(), launches on the stream it is
 // given, allocates nothing and does not synchronise.  The caller checks
@@ -283,6 +288,36 @@ gather_pairs_kernel(const P* __restrict__ perm, int64_t n,
   }
 }
 
+// -- a cached plan: the two-phase route --------------------------------------
+//
+// With a permutation reused across calls (GlobalPermutePlan) the random
+// reads can go: the plan, built once, cuts x into chunks and out into tiles
+// of ``tile`` elements.  Phase 1 (a block a chunk) reads the chunk in
+// order, places each element at its slot in shared memory (slot1: the chunk
+// sorted by destination tile) and writes the chunk to the scratch b in that
+// order: b holds, chunk by chunk, a run for each destination tile.  Phase 2
+// (a block a tile) reads its runs (bsrc: the b slot of each of its inputs,
+// runs of consecutive slots), places each element at its place in the tile
+// in shared memory (pos2) and writes the tile in order.  Every device-memory
+// access is a streaming read or write of whole lines but phase 2's runs,
+// ``tile``^2 / n elements long.
+
+template <typename U>
+__global__ void __launch_bounds__(1024)
+route_place_kernel(const U* __restrict__ src, const int32_t* __restrict__ at,
+                   const uint16_t* __restrict__ slot, U* __restrict__ dst,
+                   int64_t n, int tile) {
+  extern __shared__ uint4 smem_words[];
+  U* sm = reinterpret_cast<U*>(smem_words);
+  const int64_t t0 = int64_t(blockIdx.x) * tile;
+  const int cnt = n - t0 < tile ? static_cast<int>(n - t0) : tile;
+#pragma unroll 4
+  for (int k = threadIdx.x; k < cnt; k += blockDim.x)
+    sm[slot[t0 + k]] = src[at ? at[t0 + k] : t0 + k];
+  __syncthreads();
+  for (int k = threadIdx.x; k < cnt; k += blockDim.x) dst[t0 + k] = sm[k];
+}
+
 // -- launchers ---------------------------------------------------------------
 
 // x's lines back to evict_normal after the passes that kept them evict_last
@@ -386,6 +421,26 @@ cudaError_t launch_pairs_by_width(const void* perm, int64_t n, Payload a,
   }
 }
 
+template <typename U>
+cudaError_t launch_route(const void* x, void* out, void* b, int64_t n,
+                         int tile, const void* slot1, const void* bsrc,
+                         const void* pos2, cudaStream_t s) {
+  const int64_t blocks = (n + tile - 1) / tile;
+  const int bytes = tile * static_cast<int>(sizeof(U));
+  cudaError_t e = cudaFuncSetAttribute(
+      route_place_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return e;
+  const auto g = static_cast<unsigned>(blocks);
+  route_place_kernel<U><<<g, 1024, bytes, s>>>(
+      static_cast<const U*>(x), nullptr, static_cast<const uint16_t*>(slot1),
+      static_cast<U*>(b), n, tile);
+  route_place_kernel<U><<<g, 1024, bytes, s>>>(
+      static_cast<const U*>(b), static_cast<const int32_t*>(bsrc),
+      static_cast<const uint16_t*>(pos2), static_cast<U*>(out), n, tile);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Bytes of the packed row of two payloads of w0 and w1 bytes (0: they are
@@ -446,6 +501,39 @@ extern "C" int gb_permute_gather(const void* perm, int perm_bytes, int64_t n,
     }
   }
   return static_cast<int>(e == cudaSuccess ? cudaGetLastError() : e);
+}
+
+// out[p] = x[perm[p]] for n elements of w = 1, 2, 4 or 8 bytes (x, out and
+// the scratch b of n elements aligned to w) through the two-phase route of
+// a plan with chunks and tiles of ``tile`` <= 65536 elements, tile * w
+// bytes of shared memory at most 227 KB: slot1 (n entries, each source's
+// slot in its chunk), bsrc (n, the b slot of each tile input), pos2 (n,
+// each tile input's place in its tile).
+extern "C" int gb_permute_route(const void* x, void* out, void* b, int64_t w,
+                                int64_t n, int64_t tile, const void* slot1,
+                                const void* bsrc, const void* pos2,
+                                void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(out) |
+                        reinterpret_cast<uintptr_t>(b);
+  if ((w != 1 && w != 2 && w != 4 && w != 8) || mis % w || tile < 1 ||
+      tile > 65536 || tile * w > 232448 || (n + tile - 1) / tile > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int t = static_cast<int>(tile);
+  cudaError_t e;
+  switch (w) {
+    case 1: e = launch_route<uint8_t>(x, out, b, n, t, slot1, bsrc, pos2, s);
+            break;
+    case 2: e = launch_route<uint16_t>(x, out, b, n, t, slot1, bsrc, pos2, s);
+            break;
+    case 4: e = launch_route<uint32_t>(x, out, b, n, t, slot1, bsrc, pos2, s);
+            break;
+    default: e = launch_route<uint64_t>(x, out, b, n, t, slot1, bsrc, pos2,
+                                        s);
+  }
+  return static_cast<int>(e);
 }
 
 extern "C" const char* gb_error_string(int err) {

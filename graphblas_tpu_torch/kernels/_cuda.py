@@ -118,6 +118,8 @@ def _bind_permute(so) -> None:
     so.gb_permute_gather.restype = ctypes.c_int
     so.gb_permute_pair_bytes.argtypes = [I, I]
     so.gb_permute_pair_bytes.restype = I
+    so.gb_permute_route.argtypes = [P, P, P, I, I, I, P, P, P, P]
+    so.gb_permute_route.restype = ctypes.c_int
 
 
 _BIND = {"spmv": _bind_spmv, "sortreduce": _bind_sortreduce,
@@ -279,3 +281,17 @@ def permute_gather(perm, xs, outs, row_bytes, nx: int, passes: int,
             x0.data_ptr(), o0.data_ptr(), row_bytes[0], _ptr(x1), _ptr(o1),
             w1, nx, passes, flags, _ptr(pairs), _stream(dev))
     _check(err, "permute_gather", "permute")
+
+
+def permute_route(x, out, tile: int, slot1, bsrc, pos2) -> None:
+    """K9 through a cached plan's two-phase route: out[p] = x[perm[p]]
+    over 1, 2, 4 or 8-byte elements (``csrc/permute.cu``; the scratch
+    between the phases is allocated here)."""
+    dev = x.device
+    b = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        err = lib("permute").gb_permute_route(
+            x.data_ptr(), out.data_ptr(), b.data_ptr(), x.element_size(),
+            x.numel(), tile, slot1.data_ptr(), bsrc.data_ptr(),
+            pos2.data_ptr(), _stream(dev))
+    _check(err, "permute_route", "permute")

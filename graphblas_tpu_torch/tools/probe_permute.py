@@ -18,10 +18,13 @@ as int32):
   * two payloads, the reorient's (int32 row ids with fp32 or fp64 values,
     the int64 order), packed into one row of 8 or 16 bytes and gathered
     apart (flag 8), in one pass and in 2 or 3 passes;
+  * one payload, fp32 and fp64, through a GlobalPermutePlan's two-phase
+    route (``global_permute``);
   * the stores alone (flag 4: the perm stream and the stores of each
     pass, no x read) in 1, 3 and 6 passes;
   * the device time of each kernel a call launches (torch.profiler) for
-    fp32 in 3 passes and for the packed two payloads;
+    fp32 in 3 passes and through the route, and for the packed two
+    payloads;
   * beside them: the baseline, ``torch.take`` (int64 perm), ``x[perm]``
     (int32), the reorient's former two library gathers (``vecid[order]``
     and ``types.take(vals, order)``) and its stable sort.
@@ -47,6 +50,7 @@ if __package__ in (None, ""):       # run as a script from a checkout
 from graphblas_tpu_torch.core import types as T  # noqa: E402
 from graphblas_tpu_torch.kernels import _cuda  # noqa: E402
 from graphblas_tpu_torch.kernels import segment as K  # noqa: E402
+from graphblas_tpu_torch.kernels import static_route as STR  # noqa: E402
 
 HBM_BYTES_S = 3.35e12
 
@@ -114,6 +118,16 @@ def by_kernel(label, fn, calls=10):
         flush=True)
 
 
+def routed(x, plan):
+    """One call of ``global_permute`` through the plan's two-phase route,
+    and the list its output lands in."""
+    outs = [None]
+
+    def call():
+        outs[0] = STR.global_permute(x, plan)
+    return call, outs
+
+
 def kernel(perm, xs, passes, flags):
     """One call of the package's K9 entry with this launch shape."""
     outs = [torch.empty_like(x) for x in xs]
@@ -166,6 +180,10 @@ def main():
                     checked(f"1 payload {vn} perm {pn} passes={passes} "
                             f"flags={flags}",
                             *kernel(perm, [x], passes, flags), want, nb)
+            if pn == "i32":
+                checked(f"1 payload {vn} plan two-phase route",
+                        *routed(x, STR.GlobalPermutePlan(perm, n)), want,
+                        n * (4 + 2 * x.element_size()))
             if pn == "i64":
                 record(f"torch.take {vn} (int64 perm)",
                        lambda x=x, p=perm: torch.take(x, p), nb)
@@ -190,6 +208,9 @@ def main():
                n * 8)
     by_kernel("1 payload fp32 perm i32 passes=3 flags=1",
               kernel(perms["i32"], [x32], 3, 1)[0])
+    plan = STR.GlobalPermutePlan(perms["i32"], n)
+    by_kernel("1 payload fp32 plan two-phase route",
+              lambda: STR.global_permute(x32, plan))
     for vn, x in vals.items():
         by_kernel(f"2 payloads int32 + {vn} perm i64 packed one pass",
                   kernel(order, [vecid, x], 1, 0)[0])

@@ -394,6 +394,28 @@ def test_permute_rows_matches_plain(cuda_device, kind, pdt):
             assert GT.same_bits(outs[1], want_x), (passes, flags)
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.float32,
+                                   torch.float64])
+def test_permute_route_matches_plain(cuda_device, dtype):
+    """A plan's two-phase route at every element width it takes, over
+    chunks and tiles with a partial last one, from a source one element
+    past its alignment: bitwise the plain version and the route's plain
+    version, and bitwise again on a second call."""
+    rng = np.random.default_rng(92)
+    n = 3 * STR.ROUTE_TILE + 1234
+    x = GT.shifted(torch.from_numpy(rng.standard_normal(n) * 100).to(dtype)
+                   .to(cuda_device), 1)
+    plan = STR.GlobalPermutePlan(torch.from_numpy(rng.permutation(n))
+                                 .to(cuda_device), n)
+    before = STR.launches
+    got, again = STR.global_permute(x, plan), STR.global_permute(x, plan)
+    torch.cuda.synchronize()
+    assert STR.launches == before + 2
+    assert GT.same_bits(got, STR.permute_plain(x, plan.perm))
+    assert GT.same_bits(got, STR.route_plain(x, plan))
+    assert GT.same_bits(again, got)
+
+
 def test_permute_rows_refuses_bad_operands(cuda_device):
     x = torch.arange(10, dtype=torch.float32, device=cuda_device)
     perm = torch.arange(10, device=cuda_device)

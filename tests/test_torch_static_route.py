@@ -140,3 +140,18 @@ def test_permute_rows_matches_jax_global_permute():
                                          interpret=True))
     np.testing.assert_array_equal(gx.numpy(), want)
     np.testing.assert_array_equal(gi.numpy(), ids[p])
+
+
+@pytest.mark.parametrize("n", [1, 1000, STR.ROUTE_TILE + 1, 40_000])
+def test_route_plain_matches_numpy(n):
+    """A plan's two-phase route (chunks and tiles of ROUTE_TILE elements,
+    the last partial) moves every element where x[perm] puts it."""
+    rng = np.random.default_rng(42)
+    perm = rng.permutation(n)
+    x = rng.integers(-1 << 30, 1 << 30, n).astype(np.int32)
+    plan = STR.GlobalPermutePlan(torch.from_numpy(perm), n)
+    np.testing.assert_array_equal(
+        STR.route_plain(torch.from_numpy(x), plan).numpy(), x[perm])
+    slot1, bsrc, pos2 = plan.route()
+    assert slot1.dtype == pos2.dtype == torch.int16
+    assert sorted(bsrc.tolist()) == list(range(n))
