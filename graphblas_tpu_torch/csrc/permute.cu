@@ -31,25 +31,27 @@
 //     apart, loads their perm entries, then their elements, then stores
 //     them: independent random reads in flight, every perm load and out
 //     store of a warp coalesced (8 a thread measured the same, 16 slower);
-//   * L2-blocked passes (``passes`` of 2 or 3, chosen by the wrapper from
-//     the bytes of x): pass s gathers only the outputs whose source lies in
-//     the s-th equal range of x, so that range stays in L2 while the pass
-//     reads it at random; x's reads keep their lines with an evict_last
-//     policy and perm's stream past them with evict_first (flag kHintX),
-//     and the launcher puts x's lines back to evict_normal after the last
-//     pass.  Each pass reads perm again and stores part of every output
-//     sector, which costs as much as a whole store pass: past three passes
-//     that costs more than the misses it saves;
+//   * L2-blocked passes (2 or 3 where the gathered rows fill 2-3 times
+//     kPassBytes, else one; passes_for below): pass s gathers only the
+//     outputs whose source lies in the s-th equal range of x, so that
+//     range stays in L2 while the pass reads it at random; x's reads keep
+//     their lines with an evict_last policy and perm's stream past them
+//     with evict_first, and the launcher puts x's lines back to
+//     evict_normal after the last pass.  Each pass reads perm again and
+//     stores part of every output sector, which costs as much as a whole
+//     store pass: past three passes that costs more than the misses it
+//     saves;
 //   * two payloads as packed rows: when the first payload is 4 bytes (the
 //     reorient's row ids) and the second 1, 2, 4 or 8, a streaming pass
 //     packs both into one row of 8 or 16 bytes (``pairs``), and the gather
 //     reads one sector an output instead of two and stores the two halves
-//     to their outputs;
-//   * a permutation reused through a plan (GlobalPermutePlan) takes the
-//     two-phase route (gb_permute_route below), the Hopper form of the JAX
-//     global_permute's two Clos passes: with the plan built once, no read
-//     is random.  A fresh permutation (the reorient's) cannot pay for a
-//     plan: building one sorts twice and scatters once.
+//     to their outputs.
+//
+// A plan's two-phase route (the Hopper form of the JAX global_permute's two
+// Clos passes, every access streaming) measured 0.183 ms at 2^24 fp32
+// elements against 0.268 for the passes, but a fresh permutation cannot pay
+// for a plan (two sorts and a scatter) and no caller reuses one, so it is
+// not kept.
 //
 // The launcher returns cudaGetLastError(), launches on the stream it is
 // given, allocates nothing and does not synchronise.  The caller checks
@@ -65,13 +67,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPerThread = 4;  // outputs a thread (E)
-
-// flags of gb_permute_gather
-constexpr int kHintX = 1;     // x evict_last, perm evict_first
-constexpr int kNoGather = 4;  // probe only: store the source index's low
-                              // bits instead of x (wrong results; times the
-                              // perm stream and the stores alone)
-constexpr int kNoPack = 8;    // probe only: two payloads gathered apart
+// bytes of gathered rows a pass keeps in L2, and at most kMaxPasses such
+// passes (more sources than that take one pass)
+constexpr int64_t kPassBytes = int64_t(24) << 20;
+constexpr int64_t kMaxPasses = 3;
 
 __device__ __forceinline__ uint64_t policy_last() {
   uint64_t p;
@@ -141,15 +140,6 @@ __device__ __forceinline__ uint4 ld(const uint4* a, uint64_t pol) {
   return v;
 }
 
-template <typename U>
-__device__ __forceinline__ U low_bits(int64_t i) {
-  return static_cast<U>(i);
-}
-template <>
-__device__ __forceinline__ uint4 low_bits<uint4>(int64_t i) {
-  return make_uint4(static_cast<uint32_t>(i), 0u, 0u, 0u);
-}
-
 // one payload: x and out as arrays of units U, k units an element
 struct Payload {
   const void* x;
@@ -182,15 +172,13 @@ __device__ __forceinline__ void sources(const P* __restrict__ perm,
 template <typename U, typename P, int E>
 __device__ __forceinline__ void gather_tile(const Payload& pl,
                                             const P (&src)[E], int64_t base,
-                                            uint64_t px, bool no_gather) {
+                                            uint64_t px) {
   const U* x = static_cast<const U*>(pl.x);
   U* out = static_cast<U*>(pl.out);
   if (pl.k == 1) {
     U v[E];
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      v[e] = src[e] < 0 ? U{}
-             : no_gather ? low_bits<U>(src[e]) : ld(x + src[e], px);
+    for (int e = 0; e < E; ++e) v[e] = src[e] < 0 ? U{} : ld(x + src[e], px);
 #pragma unroll
     for (int e = 0; e < E; ++e)
       if (src[e] >= 0) out[base + int64_t(e) * kThreads] = v[e];
@@ -200,40 +188,37 @@ __device__ __forceinline__ void gather_tile(const Payload& pl,
     if (src[e] < 0) continue;
     const U* s = x + int64_t(src[e]) * pl.k;
     U* d = out + (base + int64_t(e) * kThreads) * pl.k;
-    for (int64_t j = 0; j < pl.k; ++j)
-      d[j] = no_gather ? low_bits<U>(src[e]) : ld(s + j, px);
+    for (int64_t j = 0; j < pl.k; ++j) d[j] = ld(s + j, px);
   }
 }
 
 template <typename P, int E>
 __device__ __forceinline__ void gather_payload(const Payload& pl,
                                                const P (&src)[E],
-                                               int64_t base, uint64_t px,
-                                               bool no_gather) {
+                                               int64_t base, uint64_t px) {
   switch (pl.unit) {
-    case 0: gather_tile<uint8_t>(pl, src, base, px, no_gather); break;
-    case 1: gather_tile<uint16_t>(pl, src, base, px, no_gather); break;
-    case 2: gather_tile<uint32_t>(pl, src, base, px, no_gather); break;
-    case 3: gather_tile<uint64_t>(pl, src, base, px, no_gather); break;
-    default: gather_tile<uint4>(pl, src, base, px, no_gather); break;
+    case 0: gather_tile<uint8_t>(pl, src, base, px); break;
+    case 1: gather_tile<uint16_t>(pl, src, base, px); break;
+    case 2: gather_tile<uint32_t>(pl, src, base, px); break;
+    case 3: gather_tile<uint64_t>(pl, src, base, px); break;
+    default: gather_tile<uint4>(pl, src, base, px); break;
   }
 }
 
 // One pass over all n outputs: a block takes kThreads * E consecutive
 // outputs, thread t the outputs base + e * kThreads (e < E); outputs whose
-// source lies outside [lo, hi) are left for another pass.
+// source lies outside [lo, hi) are left for another pass.  ``keep``: one of
+// several passes, so x's lines are read evict_last.
 template <typename P, int E>
 __global__ void __launch_bounds__(kThreads)
 permute_gather_kernel(const P* __restrict__ perm, int64_t n, Payload a,
-                      Payload b, int two, int64_t lo, int64_t hi,
-                      int flags) {
-  const uint64_t px = (flags & kHintX) ? policy_last() : policy_normal();
-  const bool no_gather = (flags & kNoGather) != 0;
+                      Payload b, int two, int64_t lo, int64_t hi, int keep) {
+  const uint64_t px = keep ? policy_last() : policy_normal();
   const int64_t base = int64_t(blockIdx.x) * (kThreads * E) + threadIdx.x;
   P src[E];
   sources(perm, n, base, lo, hi, src);
-  gather_payload(a, src, base, px, no_gather);
-  if (two) gather_payload(b, src, base, px, no_gather);
+  gather_payload(a, src, base, px);
+  if (two) gather_payload(b, src, base, px);
 }
 
 // -- two payloads as packed rows: 4-byte ids and a value of 1 to 8 bytes ---
@@ -267,9 +252,9 @@ __global__ void __launch_bounds__(kThreads)
 gather_pairs_kernel(const P* __restrict__ perm, int64_t n,
                     const Pair<V>* __restrict__ pairs,
                     uint32_t* __restrict__ out_ids, V* __restrict__ out_vals,
-                    int64_t lo, int64_t hi, int flags) {
+                    int64_t lo, int64_t hi, int keep) {
   using W = PairWord<V>;
-  const uint64_t px = (flags & kHintX) ? policy_last() : policy_normal();
+  const uint64_t px = keep ? policy_last() : policy_normal();
   const int64_t base = int64_t(blockIdx.x) * (kThreads * E) + threadIdx.x;
   P src[E];
   sources(perm, n, base, lo, hi, src);
@@ -286,36 +271,6 @@ gather_pairs_kernel(const P* __restrict__ perm, int64_t n,
     out_ids[base + int64_t(e) * kThreads] = r.id;
     out_vals[base + int64_t(e) * kThreads] = r.val;
   }
-}
-
-// -- a cached plan: the two-phase route --------------------------------------
-//
-// With a permutation reused across calls (GlobalPermutePlan) the random
-// reads can go: the plan, built once, cuts x into chunks and out into tiles
-// of ``tile`` elements.  Phase 1 (a block a chunk) reads the chunk in
-// order, places each element at its slot in shared memory (slot1: the chunk
-// sorted by destination tile) and writes the chunk to the scratch b in that
-// order: b holds, chunk by chunk, a run for each destination tile.  Phase 2
-// (a block a tile) reads its runs (bsrc: the b slot of each of its inputs,
-// runs of consecutive slots), places each element at its place in the tile
-// in shared memory (pos2) and writes the tile in order.  Every device-memory
-// access is a streaming read or write of whole lines but phase 2's runs,
-// ``tile``^2 / n elements long.
-
-template <typename U>
-__global__ void __launch_bounds__(1024)
-route_place_kernel(const U* __restrict__ src, const int32_t* __restrict__ at,
-                   const uint16_t* __restrict__ slot, U* __restrict__ dst,
-                   int64_t n, int tile) {
-  extern __shared__ uint4 smem_words[];
-  U* sm = reinterpret_cast<U*>(smem_words);
-  const int64_t t0 = int64_t(blockIdx.x) * tile;
-  const int cnt = n - t0 < tile ? static_cast<int>(n - t0) : tile;
-#pragma unroll 4
-  for (int k = threadIdx.x; k < cnt; k += blockDim.x)
-    sm[slot[t0 + k]] = src[at ? at[t0 + k] : t0 + k];
-  __syncthreads();
-  for (int k = threadIdx.x; k < cnt; k += blockDim.x) dst[t0 + k] = sm[k];
 }
 
 // -- launchers ---------------------------------------------------------------
@@ -352,6 +307,13 @@ Payload payload(const void* x, void* out, int64_t w) {
   return Payload{x, out, w >> unit, unit};
 }
 
+// L2-blocked passes for nx gathered rows of ``row`` bytes: 2 or 3 where
+// the rows fill that many times kPassBytes, else one
+int64_t passes_for(int64_t nx, int64_t row) {
+  const int64_t passes = (nx * row + kPassBytes - 1) / kPassBytes;
+  return passes > 1 && passes <= kMaxPasses ? passes : 1;
+}
+
 // the grid of a pass over n outputs, ``per_thread`` a thread (0 when too
 // large)
 unsigned grid(int64_t n, int per_thread = kPerThread) {
@@ -360,13 +322,14 @@ unsigned grid(int64_t n, int per_thread = kPerThread) {
   return blocks > 0x7fffffff ? 0u : static_cast<unsigned>(blocks);
 }
 
-// one launch(lo, hi) for each [lo, hi) of ``passes`` equal ranges of
+// one launch(lo, hi, keep) for each [lo, hi) of ``passes`` equal ranges of
 // [0, nx), or one unbounded when passes == 1
 template <typename F>
 cudaError_t by_pass(int64_t nx, int64_t passes, F&& launch) {
   const int64_t seg = (nx + passes - 1) / passes;
   for (int64_t lo = 0; lo < nx; lo += seg) {
-    launch(passes == 1 ? INT64_MIN : lo, passes == 1 ? INT64_MAX : lo + seg);
+    launch(passes == 1 ? INT64_MIN : lo, passes == 1 ? INT64_MAX : lo + seg,
+           passes > 1 ? 1 : 0);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -375,70 +338,46 @@ cudaError_t by_pass(int64_t nx, int64_t passes, F&& launch) {
 
 template <typename P>
 cudaError_t launch_rows(const void* perm, int64_t n, Payload a, Payload b,
-                        int two, int64_t nx, int64_t passes, int flags,
+                        int two, int64_t nx, int64_t passes,
                         cudaStream_t s) {
   const unsigned g = grid(n);
   if (!g) return cudaErrorInvalidValue;
-  return by_pass(nx, passes, [&](int64_t lo, int64_t hi) {
+  return by_pass(nx, passes, [&](int64_t lo, int64_t hi, int keep) {
     permute_gather_kernel<P, kPerThread><<<g, kThreads, 0, s>>>(
-        static_cast<const P*>(perm), n, a, b, two, lo, hi, flags);
+        static_cast<const P*>(perm), n, a, b, two, lo, hi, keep);
   });
 }
 
 template <typename P, typename V>
 cudaError_t launch_pairs(const void* perm, int64_t n, Payload a, Payload b,
-                         int64_t nx, int64_t passes, int flags, void* pairs,
+                         int64_t nx, int64_t passes, void* pairs,
                          cudaStream_t s) {
   auto* pr = static_cast<Pair<V>*>(pairs);
   const unsigned g = grid(n), gx = grid(nx, 1);
   if (!g || !gx) return cudaErrorInvalidValue;
   pack_kernel<V><<<gx, kThreads, 0, s>>>(static_cast<const uint32_t*>(a.x),
                                         static_cast<const V*>(b.x), pr, nx);
-  return by_pass(nx, passes, [&](int64_t lo, int64_t hi) {
+  return by_pass(nx, passes, [&](int64_t lo, int64_t hi, int keep) {
     gather_pairs_kernel<P, V, kPerThread><<<g, kThreads, 0, s>>>(
         static_cast<const P*>(perm), n, pr, static_cast<uint32_t*>(a.out),
-        static_cast<V*>(b.out), lo, hi, flags);
+        static_cast<V*>(b.out), lo, hi, keep);
   });
 }
 
 template <typename P>
 cudaError_t launch_pairs_by_width(const void* perm, int64_t n, Payload a,
                                   Payload b, int64_t nx, int64_t passes,
-                                  int flags, void* pairs, cudaStream_t s) {
+                                  void* pairs, cudaStream_t s) {
   switch (b.unit) {
     case 0:
-      return launch_pairs<P, uint8_t>(perm, n, a, b, nx, passes, flags,
-                                      pairs, s);
+      return launch_pairs<P, uint8_t>(perm, n, a, b, nx, passes, pairs, s);
     case 1:
-      return launch_pairs<P, uint16_t>(perm, n, a, b, nx, passes, flags,
-                                       pairs, s);
+      return launch_pairs<P, uint16_t>(perm, n, a, b, nx, passes, pairs, s);
     case 2:
-      return launch_pairs<P, uint32_t>(perm, n, a, b, nx, passes, flags,
-                                       pairs, s);
+      return launch_pairs<P, uint32_t>(perm, n, a, b, nx, passes, pairs, s);
     default:
-      return launch_pairs<P, uint64_t>(perm, n, a, b, nx, passes, flags,
-                                       pairs, s);
+      return launch_pairs<P, uint64_t>(perm, n, a, b, nx, passes, pairs, s);
   }
-}
-
-template <typename U>
-cudaError_t launch_route(const void* x, void* out, void* b, int64_t n,
-                         int tile, const void* slot1, const void* bsrc,
-                         const void* pos2, cudaStream_t s) {
-  const int64_t blocks = (n + tile - 1) / tile;
-  const int bytes = tile * static_cast<int>(sizeof(U));
-  cudaError_t e = cudaFuncSetAttribute(
-      route_place_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (e != cudaSuccess) return e;
-  const auto g = static_cast<unsigned>(blocks);
-  route_place_kernel<U><<<g, 1024, bytes, s>>>(
-      static_cast<const U*>(x), nullptr, static_cast<const uint16_t*>(slot1),
-      static_cast<U*>(b), n, tile);
-  route_place_kernel<U><<<g, 1024, bytes, s>>>(
-      static_cast<const U*>(b), static_cast<const int32_t*>(bsrc),
-      static_cast<const uint16_t*>(pos2), static_cast<U*>(out), n, tile);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -457,83 +396,49 @@ extern "C" int64_t gb_permute_pair_bytes(int64_t w0, int64_t w1) {
 // out0[p] = x0[perm[p]] (rows of w0 bytes) for p < n and, when w1 > 0,
 // out1[p] = x1[perm[p]] (rows of w1 bytes) in the same call.  perm holds
 // perm_bytes = 4 or 8 byte signed indices into the nx rows of x0 (and x1).
-// passes >= 1: L2-blocked passes, each over its range of the gathered rows;
-// flags: kHintX (| kNoGather | kNoPack, probe only); pairs: 16-byte aligned
-// scratch of nx packed rows (gb_permute_pair_bytes) where the two payloads
-// pack (both aligned to their widths), else unused.
+// passes: L2-blocked passes, each over its range of the gathered rows, or
+// 0 for as many as the bytes the gather reads call for (passes_for: the
+// packed rows where the payloads pack, else w0 + w1); pairs: 16-byte
+// aligned scratch of nx packed rows (gb_permute_pair_bytes) where the two
+// payloads pack (both aligned to their widths), else unused.
 extern "C" int gb_permute_gather(const void* perm, int perm_bytes, int64_t n,
                                  const void* x0, void* out0, int64_t w0,
                                  const void* x1, void* out1, int64_t w1,
-                                 int64_t nx, int64_t passes, int flags,
-                                 void* pairs, void* stream) {
+                                 int64_t nx, int64_t passes, void* pairs,
+                                 void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   if ((perm_bytes != 4 && perm_bytes != 8) || w0 <= 0 || w1 < 0 ||
-      nx <= 0 || passes < 1)
+      nx <= 0 || passes < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (passes == 1) flags &= ~kHintX;  // nothing to keep between passes
   const Payload a = payload(x0, out0, w0);
   const int two = w1 > 0;
   const Payload b = two ? payload(x1, out1, w1) : a;
-  const bool pack = two && !(flags & kNoPack) &&
-                    gb_permute_pair_bytes(w0, w1) && a.k == 1 && b.k == 1;
+  const int64_t pair = two ? gb_permute_pair_bytes(w0, w1) : 0;
+  const bool pack = pair && a.k == 1 && b.k == 1;
   if (pack && (!pairs || reinterpret_cast<uintptr_t>(pairs) % 16))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (passes == 0) passes = passes_for(nx, pack ? pair : w0 + w1);
   cudaError_t e;
   if (pack)
     e = perm_bytes == 4
             ? launch_pairs_by_width<int32_t>(perm, n, a, b, nx, passes,
-                                             flags, pairs, s)
+                                             pairs, s)
             : launch_pairs_by_width<int64_t>(perm, n, a, b, nx, passes,
-                                             flags, pairs, s);
+                                             pairs, s);
   else
     e = perm_bytes == 4
-            ? launch_rows<int32_t>(perm, n, a, b, two, nx, passes, flags,
-                                   s)
-            : launch_rows<int64_t>(perm, n, a, b, two, nx, passes, flags,
-                                   s);
-  if (e == cudaSuccess && (flags & kHintX)) {
+            ? launch_rows<int32_t>(perm, n, a, b, two, nx, passes, s)
+            : launch_rows<int64_t>(perm, n, a, b, two, nx, passes, s);
+  if (e == cudaSuccess && passes > 1) {
     if (pack) {
-      e = demote(pairs, nx * gb_permute_pair_bytes(w0, w1), s);
+      e = demote(pairs, nx * pair, s);
     } else {
       e = demote(x0, nx * w0, s);
       if (e == cudaSuccess && two) e = demote(x1, nx * w1, s);
     }
   }
   return static_cast<int>(e == cudaSuccess ? cudaGetLastError() : e);
-}
-
-// out[p] = x[perm[p]] for n elements of w = 1, 2, 4 or 8 bytes (x, out and
-// the scratch b of n elements aligned to w) through the two-phase route of
-// a plan with chunks and tiles of ``tile`` <= 65536 elements, tile * w
-// bytes of shared memory at most 227 KB: slot1 (n entries, each source's
-// slot in its chunk), bsrc (n, the b slot of each tile input), pos2 (n,
-// each tile input's place in its tile).
-extern "C" int gb_permute_route(const void* x, void* out, void* b, int64_t w,
-                                int64_t n, int64_t tile, const void* slot1,
-                                const void* bsrc, const void* pos2,
-                                void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const uintptr_t mis = reinterpret_cast<uintptr_t>(x) |
-                        reinterpret_cast<uintptr_t>(out) |
-                        reinterpret_cast<uintptr_t>(b);
-  if ((w != 1 && w != 2 && w != 4 && w != 8) || mis % w || tile < 1 ||
-      tile > 65536 || tile * w > 232448 || (n + tile - 1) / tile > 0x7fffffff)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const int t = static_cast<int>(tile);
-  cudaError_t e;
-  switch (w) {
-    case 1: e = launch_route<uint8_t>(x, out, b, n, t, slot1, bsrc, pos2, s);
-            break;
-    case 2: e = launch_route<uint16_t>(x, out, b, n, t, slot1, bsrc, pos2, s);
-            break;
-    case 4: e = launch_route<uint32_t>(x, out, b, n, t, slot1, bsrc, pos2, s);
-            break;
-    default: e = launch_route<uint64_t>(x, out, b, n, t, slot1, bsrc, pos2,
-                                        s);
-  }
-  return static_cast<int>(e);
 }
 
 extern "C" const char* gb_error_string(int err) {

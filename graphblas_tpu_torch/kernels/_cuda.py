@@ -113,13 +113,10 @@ def _bind_sortreduce(so) -> None:
 
 def _bind_permute(so) -> None:
     P, I, C = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    so.gb_permute_gather.argtypes = [P, C, I, P, P, I, P, P, I, I, I, C, P,
-                                     P]
+    so.gb_permute_gather.argtypes = [P, C, I, P, P, I, P, P, I, I, I, P, P]
     so.gb_permute_gather.restype = ctypes.c_int
     so.gb_permute_pair_bytes.argtypes = [I, I]
     so.gb_permute_pair_bytes.restype = I
-    so.gb_permute_route.argtypes = [P, P, P, I, I, I, P, P, P, P]
-    so.gb_permute_route.restype = ctypes.c_int
 
 
 _BIND = {"spmv": _bind_spmv, "sortreduce": _bind_sortreduce,
@@ -262,12 +259,13 @@ def sort_reduce_info(mode: str, C: int) -> dict:
                      "dynamic_smem"), out))
 
 
-def permute_gather(perm, xs, outs, row_bytes, nx: int, passes: int,
-                   flags: int) -> None:
+def permute_gather(perm, xs, outs, row_bytes, nx: int,
+                   passes: int = 0) -> None:
     """K9: outs[k][p] = xs[k][perm[p]] for one or two payloads (rows of
     ``row_bytes[k]`` bytes) through one int32 or int64 ``perm``, on one
-    card, in ``passes`` L2-blocked passes (``csrc/permute.cu``; two
-    payloads that pack into one row get their scratch here)."""
+    card, in ``passes`` L2-blocked passes, 0 for as many as the bytes it
+    gathers call for (``csrc/permute.cu``; two payloads that pack into one
+    row get their scratch here)."""
     so = lib("permute")
     dev = perm.device
     (x0, x1), (o0, o1) = (list(xs) + [None])[:2], (list(outs) + [None])[:2]
@@ -279,19 +277,5 @@ def permute_gather(perm, xs, outs, row_bytes, nx: int, passes: int,
         err = so.gb_permute_gather(
             perm.data_ptr(), perm.element_size(), perm.numel(),
             x0.data_ptr(), o0.data_ptr(), row_bytes[0], _ptr(x1), _ptr(o1),
-            w1, nx, passes, flags, _ptr(pairs), _stream(dev))
+            w1, nx, passes, _ptr(pairs), _stream(dev))
     _check(err, "permute_gather", "permute")
-
-
-def permute_route(x, out, tile: int, slot1, bsrc, pos2) -> None:
-    """K9 through a cached plan's two-phase route: out[p] = x[perm[p]]
-    over 1, 2, 4 or 8-byte elements (``csrc/permute.cu``; the scratch
-    between the phases is allocated here)."""
-    dev = x.device
-    b = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        err = lib("permute").gb_permute_route(
-            x.data_ptr(), out.data_ptr(), b.data_ptr(), x.element_size(),
-            x.numel(), tile, slot1.data_ptr(), bsrc.data_ptr(),
-            pos2.data_ptr(), _stream(dev))
-    _check(err, "permute_route", "permute")

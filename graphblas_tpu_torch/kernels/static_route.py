@@ -17,16 +17,13 @@ The TPU executors run Benes and Clos networks built by host planners
 because the TensorCore cannot gather.  Hopper gathers from device memory,
 so the port takes the permutation itself: every entry point is one call
 of ``gb_permute_gather`` (``csrc/permute.cu``) for CUDA tensors, counted
-in ``launches``, and the plain version ``permute_plain`` for CPU tensors;
-``global_permute`` through a ``GlobalPermutePlan`` calls
-``gb_permute_route`` instead, the two-phase route of the plan (built on
-the card, once), whose accesses all stream.  Rows are of any type and
-width (1, 2, 4, 8, 16 bytes, struct rows); permutations are int32 or
-int64.  The public entry points
-check their permutations (every index in range, each used once) where
-they enter: in ``GlobalPermutePlan`` once, and on every call that is
-given a bare permutation.  ``permute_rows`` checks nothing: its callers
-pass a sort's order, whose check would cost host syncs.
+in ``launches``, and the plain version ``permute_plain`` for CPU tensors.
+Rows are of any type and width (1, 2, 4, 8, 16 bytes, struct rows);
+permutations are int32 or int64.  The public entry points check their
+permutations (every index in range, each used once) where they enter:
+in ``GlobalPermutePlan`` once, and on every call that is given a bare
+permutation.  ``permute_rows`` checks nothing: its callers pass a sort's
+order, whose check would cost host syncs.
 """
 
 from __future__ import annotations
@@ -40,18 +37,6 @@ from ..core import types as T
 from . import _cuda
 
 LANES = 128
-
-# K9's passes on the card (graphblas_tpu_torch/tools/probe_permute.py chose
-# them; PERF.md gives its times): bytes of gathered rows a pass keeps in L2,
-# and at most MAX_PASSES such passes (more sources than that take one
-# pass); the cache hints of the passes
-PASS_BYTES = 24 << 20
-MAX_PASSES = 3
-FLAGS = 1
-# chunks and tiles of a plan's two-phase route: phase 2 reads runs of
-# ROUTE_TILE^2 / n elements, and a tile of 8-byte elements fills 128 KB of
-# shared memory
-ROUTE_TILE = 16384
 
 # calls of the CUDA kernel, all its passes one call (CPU calls run the
 # plain version, uncounted)
@@ -79,61 +64,16 @@ def _checked(perm, n: int, device) -> torch.Tensor:
 
 class GlobalPermutePlan:
     """out.flat = x.flat[perm] for arrays of n elements: the permutation,
-    checked once and held on the device as int32, and its two-phase route
-    (the counterpart of the JAX two-phase Clos plan), built on the first
-    call on the card."""
+    checked once and held on the device as int32 (the counterpart of the
+    JAX two-phase Clos plan; the card gathers through it directly)."""
 
-    __slots__ = ("perm", "n", "_route")
+    __slots__ = ("perm", "n")
 
     def __init__(self, perm, n, device=None):
         if device is None and not isinstance(perm, torch.Tensor):
             device = CFG.default_device()
         self.n = int(n)
         self.perm = _checked(perm, self.n, device)
-        self._route = None
-
-    def route(self):
-        """(slot1, bsrc, pos2) of ``route_plan(perm, ROUTE_TILE)``."""
-        if self._route is None:
-            self._route = route_plan(self.perm, ROUTE_TILE)
-        return self._route
-
-
-def route_plan(perm, tile: int):
-    """The two-phase route of ``perm`` with chunks and tiles of ``tile``
-    elements (``csrc/permute.cu``): slot1[i], the slot of source i in its
-    chunk once the chunk is sorted by destination tile; bsrc[k], the slot
-    of the scratch b (the sorted chunks end to end) holding input k of
-    tile k // tile, inputs in b's order; pos2[k], that input's place in
-    its tile.  Slots and places are 16-bit (tile <= 65536)."""
-    n = perm.numel()
-    dev = perm.device
-    src = torch.arange(n, device=dev)
-    inv = torch.empty(n, dtype=torch.int64, device=dev)
-    inv[perm.long()] = src                     # the destination of source i
-    dtile = inv // tile
-    chunk0 = src // tile * tile
-    order1 = torch.sort(chunk0 * (n // tile + 1) + dtile, stable=True)[1]
-    slot = torch.empty(n, dtype=torch.int64, device=dev)
-    slot[order1] = src                         # b slot of source i
-    order2 = torch.sort(dtile[order1], stable=True)[1]
-    pos2 = inv[order1[order2]] - chunk0
-    return ((slot - chunk0).to(torch.int16), order2.to(torch.int32),
-            pos2.to(torch.int16))
-
-
-def route_plain(x, plan) -> torch.Tensor:
-    """Plain version of the two-phase route: x.flat[perm] as the two
-    phases of ``plan.route()`` compute it."""
-    slot1, bsrc, pos2 = plan.route()
-    xf = x.reshape(-1)
-    base = torch.arange(xf.numel(), device=xf.device) // ROUTE_TILE * \
-        ROUTE_TILE
-    b = torch.empty_like(xf)
-    b[base + slot1.long() % 65536] = xf
-    out = torch.empty_like(xf)
-    out[base + pos2.long() % 65536] = b[bsrc.long()]
-    return out.reshape(x.shape)
 
 
 def permute_plain(x, perm, *more):
@@ -142,13 +82,6 @@ def permute_plain(x, perm, *more):
     idx = perm.long()
     outs = tuple(T.take(t, idx) for t in (x,) + more)
     return outs if more else outs[0]
-
-
-def passes_for(nx: int, row_bytes) -> int:
-    """L2-blocked passes for sources of ``nx`` rows of ``sum(row_bytes)``
-    bytes."""
-    passes = -(-nx * sum(row_bytes) // PASS_BYTES)
-    return passes if 1 < passes <= MAX_PASSES else 1
 
 
 def permute_rows(x, perm, *more):
@@ -185,8 +118,7 @@ def permute_rows(x, perm, *more):
     if n and min(row_bytes):
         if not nx:
             raise ValueError("permute_rows: indices into an empty payload")
-        _cuda.permute_gather(perm, xs, outs, row_bytes, nx,
-                             passes_for(nx, row_bytes), FLAGS)
+        _cuda.permute_gather(perm, xs, outs, row_bytes, nx)
         global launches
         launches += 1
     return outs if more else outs[0]
@@ -201,16 +133,7 @@ def global_permute(x, plan) -> torch.Tensor:
                             ).reshape(x.shape)
     if plan.n != n:
         raise ValueError(f"plan for {plan.n} elements, x has {n}")
-    if not (x.is_cuda and n and x.element_size() in (1, 2, 4, 8)):
-        return permute_rows(x.reshape(-1), plan.perm).reshape(x.shape)
-    if plan.perm.device != x.device:
-        raise ValueError(f"plan on {plan.perm.device}, x on {x.device}")
-    xf = x.reshape(-1)
-    out = torch.empty_like(xf)
-    _cuda.permute_route(xf, out, ROUTE_TILE, *plan.route())
-    global launches
-    launches += 1
-    return out.reshape(x.shape)
+    return permute_rows(x.reshape(-1), plan.perm).reshape(x.shape)
 
 
 def _tile_rows(x) -> int:

@@ -11,27 +11,22 @@ out-edges a vertex, seed 0: 16,777,086 nonzeros), the order that the
 reorient's stable ``torch.sort`` of the column indices gives (int64, and
 as int32):
 
-  * one payload, fp32 and fp64, int32 and int64 perm: one pass; 2, 3, 4
-    or 6 L2-blocked passes (each stores the outputs whose source lies in
-    its range of x) without and with the cache hints (flag 1: x
-    evict_last, perm evict_first);
+  * one payload, fp32 and fp64, int32 and int64 perm: the passes the
+    launcher picks; one pass; 2, 3, 4 or 6 L2-blocked passes (each stores
+    the outputs whose source lies in its range of x; x read evict_last,
+    perm evict_first);
   * two payloads, the reorient's (int32 row ids with fp32 or fp64 values,
-    the int64 order), packed into one row of 8 or 16 bytes and gathered
-    apart (flag 8), in one pass and in 2 or 3 passes;
-  * one payload, fp32 and fp64, through a GlobalPermutePlan's two-phase
-    route (``global_permute``);
-  * the stores alone (flag 4: the perm stream and the stores of each
-    pass, no x read) in 1, 3 and 6 passes;
+    the int64 order): packed into one row of 8 or 16 bytes, in one pass
+    and in 2 or 3 passes, and apart (one call a payload);
   * the device time of each kernel a call launches (torch.profiler) for
-    fp32 in 3 passes and through the route, and for the packed two
-    payloads;
+    fp32 in 3 passes and for the packed two payloads;
   * beside them: the baseline, ``torch.take`` (int64 perm), ``x[perm]``
     (int32), the reorient's former two library gathers (``vecid[order]``
     and ``types.take(vals, order)``) and its stable sort.
 
 CUDA events, median of 20 after 3 warm-up calls, the mean of two rounds
-in opposite orders; every variant but the stores-alone one is checked
-bitwise against the plain version.  Prints the card (nvidia-smi name and
+in opposite orders; every variant is checked bitwise against the plain
+version.  Prints the card (nvidia-smi name and
 power limit) and one line a variant: ms, GB/s of compulsory bytes and
 the byte bound at 3.35 TB/s.
 """
@@ -50,7 +45,6 @@ if __package__ in (None, ""):       # run as a script from a checkout
 from graphblas_tpu_torch.core import types as T  # noqa: E402
 from graphblas_tpu_torch.kernels import _cuda  # noqa: E402
 from graphblas_tpu_torch.kernels import segment as K  # noqa: E402
-from graphblas_tpu_torch.kernels import static_route as STR  # noqa: E402
 
 HBM_BYTES_S = 3.35e12
 
@@ -118,22 +112,17 @@ def by_kernel(label, fn, calls=10):
         flush=True)
 
 
-def routed(x, plan):
-    """One call of ``global_permute`` through the plan's two-phase route,
-    and the list its output lands in."""
-    outs = [None]
-
-    def call():
-        outs[0] = STR.global_permute(x, plan)
-    return call, outs
-
-
-def kernel(perm, xs, passes, flags):
-    """One call of the package's K9 entry with this launch shape."""
+def kernel(perm, xs, passes, apart=False):
+    """One call of the package's K9 entry in ``passes`` passes (0: the
+    launcher's choice), or with ``apart`` one call a payload."""
     outs = [torch.empty_like(x) for x in xs]
     rb = [x.element_size() * x[0].numel() for x in xs]
-    return lambda: _cuda.permute_gather(perm, xs, outs, rb, xs[0].shape[0],
-                                        passes, flags), outs
+    nx = xs[0].shape[0]
+    if apart:
+        return lambda: [_cuda.permute_gather(perm, [x], [o], [w], nx, passes)
+                        for x, o, w in zip(xs, outs, rb)], outs
+    return lambda: _cuda.permute_gather(perm, xs, outs, rb, nx,
+                                        passes), outs
 
 
 def main():
@@ -173,17 +162,9 @@ def main():
         for pn, perm in perms.items():
             want = [x[perm.long()]]
             nb = n * (perm.element_size() + 2 * x.element_size())
-            checked(f"1 payload {vn} perm {pn} one pass",
-                    *kernel(perm, [x], 1, 0), want, nb)
-            for passes in (2, 3, 4, 6):
-                for flags in (0, 1):
-                    checked(f"1 payload {vn} perm {pn} passes={passes} "
-                            f"flags={flags}",
-                            *kernel(perm, [x], passes, flags), want, nb)
-            if pn == "i32":
-                checked(f"1 payload {vn} plan two-phase route",
-                        *routed(x, STR.GlobalPermutePlan(perm, n)), want,
-                        n * (4 + 2 * x.element_size()))
+            for passes in (0, 1, 2, 3, 4, 6):
+                checked(f"1 payload {vn} perm {pn} passes={passes or 'auto'}",
+                        *kernel(perm, [x], passes), want, nb)
             if pn == "i64":
                 record(f"torch.take {vn} (int64 perm)",
                        lambda x=x, p=perm: torch.take(x, p), nb)
@@ -193,27 +174,19 @@ def main():
         want = [vecid[order], x[order]]
         nb = n * (8 + 2 * (4 + x.element_size()))
         two = [vecid, x]
-        for flags, how in ((0, "packed"), (8, "apart")):
-            checked(f"2 payloads int32 + {vn} perm i64 {how} one pass",
-                    *kernel(order, two, 1, flags), want, nb)
-            for passes in (2, 3):
-                checked(f"2 payloads int32 + {vn} perm i64 {how} passes="
-                        f"{passes} flags={flags + 1}",
-                        *kernel(order, two, passes, flags + 1), want, nb)
+        for passes in (0, 1, 2, 3):
+            checked(f"2 payloads int32 + {vn} perm i64 packed passes="
+                    f"{passes or 'auto'}", *kernel(order, two, passes),
+                    want, nb)
+        checked(f"2 payloads int32 + {vn} perm i64 apart (two calls)",
+                *kernel(order, two, 0, apart=True), want, nb)
         record(f"library: vecid[order] + types.take({vn}, order)",
                lambda x=x: (vecid[order], T.take(x, order)), nb)
-    for passes in (1, 3, 6):
-        fn, _ = kernel(perms["i32"], [x32], passes, 4)
-        record(f"stores alone fp32 perm i32 passes={passes} (flags 4)", fn,
-               n * 8)
-    by_kernel("1 payload fp32 perm i32 passes=3 flags=1",
-              kernel(perms["i32"], [x32], 3, 1)[0])
-    plan = STR.GlobalPermutePlan(perms["i32"], n)
-    by_kernel("1 payload fp32 plan two-phase route",
-              lambda: STR.global_permute(x32, plan))
+    by_kernel("1 payload fp32 perm i32 passes=3",
+              kernel(perms["i32"], [x32], 3)[0])
     for vn, x in vals.items():
         by_kernel(f"2 payloads int32 + {vn} perm i64 packed one pass",
-                  kernel(order, [vecid, x], 1, 0)[0])
+                  kernel(order, [vecid, x], 1)[0])
     if args.baseline:
         so = build_baseline(args.baseline)
         out = torch.empty_like(x32)

@@ -363,10 +363,9 @@ def test_permute_gather_matches_plain(cuda_device, n, dtype):
 def test_permute_rows_matches_plain(cuda_device, kind, pdt):
     """K9 at every payload width, alone and beside the int32 row ids, on
     an odd tail, from a source and into outputs one row past their
-    alignment (so the row ids and values pack only where both are
-    aligned), in one and in three L2-blocked passes, with and without the
-    cache hints and the packing: bitwise the plain version, and bitwise
-    again on a second call."""
+    alignment, in the passes the launcher picks and in one and three
+    L2-blocked passes: bitwise the plain version, and bitwise again on a
+    second call."""
     rng = np.random.default_rng(90)
     n = (1 << 16) + 37
     x = GT.k9_payload(rng, n, kind)
@@ -385,24 +384,22 @@ def test_permute_rows_matches_plain(cuda_device, kind, pdt):
     assert GT.same_bits(gi2, gi) and GT.same_bits(gx2, gx)
     rb = [4, x.element_size() * x[0].numel()]
     xs = [GT.shifted(idc, 1), GT.shifted(xc, 1)]
-    for passes in (1, 3):
-        for flags in (0, 1, 8, 9):   # cache hints; 8: the payloads unpacked
-            outs = [GT.shifted(torch.zeros_like(t), 1) for t in (idc, xc)]
-            _cuda.permute_gather(pc, xs, outs, rb, n, passes, flags)
-            torch.cuda.synchronize()
-            assert GT.same_bits(outs[0], want_ids), (passes, flags)
-            assert GT.same_bits(outs[1], want_x), (passes, flags)
+    for passes in (0, 1, 3):     # 0: the launcher's choice
+        outs = [GT.shifted(torch.zeros_like(t), 1) for t in (idc, xc)]
+        _cuda.permute_gather(pc, xs, outs, rb, n, passes)
+        torch.cuda.synchronize()
+        assert GT.same_bits(outs[0], want_ids), passes
+        assert GT.same_bits(outs[1], want_x), passes
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.float32,
                                    torch.float64])
-def test_permute_route_matches_plain(cuda_device, dtype):
-    """A plan's two-phase route at every element width it takes, over
-    chunks and tiles with a partial last one, from a source one element
-    past its alignment: bitwise the plain version and the route's plain
-    version, and bitwise again on a second call."""
+def test_global_permute_plan_matches_plain(cuda_device, dtype):
+    """``global_permute`` through a plan at 1, 2, 4 and 8-byte elements,
+    from a source one element past its alignment: one K9 launch a call,
+    bitwise the plain version, and bitwise again on a second call."""
     rng = np.random.default_rng(92)
-    n = 3 * STR.ROUTE_TILE + 1234
+    n = 3 * 16384 + 1234
     x = GT.shifted(torch.from_numpy(rng.standard_normal(n) * 100).to(dtype)
                    .to(cuda_device), 1)
     plan = STR.GlobalPermutePlan(torch.from_numpy(rng.permutation(n))
@@ -412,7 +409,6 @@ def test_permute_route_matches_plain(cuda_device, dtype):
     torch.cuda.synchronize()
     assert STR.launches == before + 2
     assert GT.same_bits(got, STR.permute_plain(x, plan.perm))
-    assert GT.same_bits(got, STR.route_plain(x, plan))
     assert GT.same_bits(again, got)
 
 

@@ -142,16 +142,23 @@ def test_permute_rows_matches_jax_global_permute():
     np.testing.assert_array_equal(gi.numpy(), ids[p])
 
 
-@pytest.mark.parametrize("n", [1, 1000, STR.ROUTE_TILE + 1, 40_000])
-def test_route_plain_matches_numpy(n):
-    """A plan's two-phase route (chunks and tiles of ROUTE_TILE elements,
-    the last partial) moves every element where x[perm] puts it."""
+@pytest.mark.parametrize("n", [1, 1000, 16385, 40_000])
+def test_global_permute_plan_goes_through_permute_rows(n, monkeypatch):
+    """``global_permute`` through a plan is one call of the unchecked
+    entry on the plan's held permutation (K9's one kernel), and moves
+    every element where x[perm] puts it."""
     rng = np.random.default_rng(42)
     perm = rng.permutation(n)
     x = rng.integers(-1 << 30, 1 << 30, n).astype(np.int32)
     plan = STR.GlobalPermutePlan(torch.from_numpy(perm), n)
-    np.testing.assert_array_equal(
-        STR.route_plain(torch.from_numpy(x), plan).numpy(), x[perm])
-    slot1, bsrc, pos2 = plan.route()
-    assert slot1.dtype == pos2.dtype == torch.int16
-    assert sorted(bsrc.tolist()) == list(range(n))
+    calls = []
+    rows = STR.permute_rows
+
+    def spy(*args):
+        calls.append(args)
+        return rows(*args)
+    monkeypatch.setattr(STR, "permute_rows", spy)
+    got = STR.global_permute(torch.from_numpy(x), plan)
+    np.testing.assert_array_equal(got.numpy(), x[perm])
+    assert len(calls) == 1 and len(calls[0]) == 2
+    assert calls[0][1] is plan.perm
