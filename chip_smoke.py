@@ -125,7 +125,22 @@ Phases, each printing one line (more for the per-graph phases):
      (SELL, K5: cnnz 268,406,919, sampled rows exact); then
      dryrun_multichip(1), one spawned NCCL rank.  Walls cold and warm, a
      warm dist_mxv and dist_pagerank traced (idle share, NCCL kernels'
-     device time), the K1-K9 launches during the phase (K2-K5 > 0).
+     device time), the K1-K9 launches during the phase (K2-K5 > 0);
+ 17. the last public surface: each demo of graphblas_tpu_torch.examples
+     (bfs, context, gauss, kron, semiring, serialize) through its
+     main(device="cuda") at its own sizes, against scipy/numpy; at graph
+     (b), weights 1..8 from seed 17: GxB_BF16 ewise_add PLUS of A and A'
+     (31,400,481 entries, exact), mxv PLUS_TIMES with x = 1 (each row the
+     float64 sum rounded once to bf16), reduce_scalar (within one bf16
+     ulp), apply AINV and a serialize round trip (bitwise); the LSE_PLUS
+     mxv (1e-5 relative of numpy's logaddexp) and the clip01 apply of
+     semiring_demo in fp32; context_demo's four threads, an fp32 mxv
+     each under its own Context (K2 4 times; bitwise equal to one K2
+     call); pack / unpack (bitwise); kron_demo's seed to 10 factors
+     (59,049 vertices, 9,765,625 entries, exact against scipy.sparse.kron);
+     gauss_demo's struct semiring through mxm at uniform n = 2^16,
+     degree 8 (exact against scipy's complex128 product).  Each step's
+     wall cold and warm and the K1-K9 launches of its cold call.
 The two lines before the last are the card (nvidia-smi) and one JSON
 object describing the kernels of the main paths (K7 and K8 at 32768, which
 no path runs, print their checks and times in phases 3 and 12 only); the
@@ -1342,7 +1357,7 @@ def host_entries(M):
     """(row-major keys, values) of a port matrix, on the host."""
     import graphblas_tpu_torch as gt
     R = M.to_format(gt.SPARSE, gt.ROW)
-    return csr_keys(R).cpu().numpy(), R.values.cpu().numpy()
+    return csr_keys(R).cpu().numpy(), gt.types.host(R._vals_expanded())
 
 
 def csr_host_keys(S):
@@ -2242,6 +2257,252 @@ def dist_path(S, card):
 
 
 
+# ---------------------------------------------------------------------------
+# 17. the last public surface: the demos, GxB_BF16, the user algebra
+# ---------------------------------------------------------------------------
+
+def bf16_round(x):
+    """float64 values rounded once to bf16 (8 significant bits, ties to
+    even), as float64: numpy only, independent of the port's cast."""
+    m, e = np.frexp(np.asarray(x, np.float64))
+    return np.ldexp(np.round(m * 256.0), e - 8)
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (x normal)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def demo_checks(step, info):
+    """Each demo's main(device="cuda") at its own sizes, held against
+    numpy/scipy as the JAX demo checks it (the demos assert their own
+    claims too)."""
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import shortest_path
+
+    from graphblas_tpu_torch.examples import (bfs_demo, context_demo,
+                                              gauss_demo, kron_demo,
+                                              semiring_demo, serialize_demo)
+    r = step("bfs_demo", lambda: bfs_demo.main(device="cuda"))
+    S = bfs_demo.graph()
+    d = shortest_path(S, unweighted=True, indices=0)
+    want = np.where(np.isinf(d), -1, d).astype(np.int64)
+    assert np.array_equal(r["levels"], want), "bfs_demo levels"
+    assert np.array_equal(r["fused_levels"], want), "bfs_demo fused"
+    par, got = r["parents"], want >= 0
+    v = np.flatnonzero(got & (np.arange(S.shape[0]) != 0))
+    assert par[0] == 0 and np.all(par[~got] == -1) and \
+        np.all(want[par[v]] == want[v] - 1) and \
+        np.all(np.asarray(S[par[v], v]).ravel() != 0), "bfs_demo parents"
+    info["bfs_reached"], info["bfs_levels"] = r["reached"], r["max_level"]
+    r = step("context_demo", lambda: context_demo.main(device="cuda"))
+    assert np.abs(r["y"] - r["want"]).max() <= FP64_TOL * \
+        np.abs(r["want"]).max(), "context_demo y"
+    info["context_sum"] = r["results"][0]
+    r = step("gauss_demo", lambda: gauss_demo.main(device="cuda"))
+    rng = np.random.default_rng(0)
+    va = np.stack([rng.integers(-3, 4, (4, 4)),
+                   rng.integers(-3, 4, (4, 4))], axis=-1)
+    ca = va[..., 0] + 1j * va[..., 1]
+    s = (ca @ ca).sum()
+    assert list(r["sum"]) == [s.real, s.imag], "gauss_demo sum"
+    r = step("kron_demo", lambda: kron_demo.main(device="cuda"))
+    seed = sps.csr_matrix((np.ones(5), kron_demo.SEED), shape=(3, 3))
+    K = seed
+    for _ in range(3):
+        K = sps.kron(K, seed, format="csr")
+    assert_sci(r["graph"], K, "kron_demo")
+    deg = np.diff(canon(K).indptr)
+    assert (r["max_out_degree"], r["empty_rows"]) == \
+        (int(deg.max()), int((deg == 0).sum())), "kron_demo degrees"
+    r = step("semiring_demo", lambda: semiring_demo.main(device="cuda"))
+    assert np.array_equal(r["distances"], [0, 1, 2, 3]), "min-plus"
+    assert np.abs(r["lse"] - np.log(1 / 3)).max() <= FP64_TOL, "lse"
+    assert np.array_equal(r["clipped"], [[0, 0.5], [1, 0.1]]), "clip01"
+    r = step("serialize_demo", lambda: serialize_demo.main(device="cuda"))
+    info["serialize_demo_bytes"] = {k: v[0] for k, v in r["blobs"].items()}
+
+
+def surface_path(S, card):
+    """Phase 17: the last public surface on the card.  Each demo's
+    main(device="cuda") at its own sizes, held against numpy/scipy; at
+    graph (b) with integer weights 1..8 from seed 17: BF16 ewise_add PLUS
+    of A and A' (pattern and values exact), mxv PLUS_TIMES with x = 1
+    (each row the float64 row sum rounded once to bf16: the sums are
+    exact in float32), reduce_scalar PLUS (within one bf16 ulp of the
+    float64 total), apply AINV (exact) and a serialize / deserialize
+    round trip (codec none; bitwise); semiring_demo's LSE_PLUS mxv over A in fp32
+    through the generic segmented scan (1e-5 relative of numpy's float64
+    logaddexp per row) and its clip01 apply (exact); context_demo's four
+    threads, each an fp32 mxv under its own Context(device="cuda"), the
+    four results bitwise equal to each other and to one K2 call (K2
+    launched 4 times); pack / unpack of A (bitwise); kron_demo's seed
+    taken to 10 factors (59,049 vertices, 9,765,625 entries) exact
+    against a chain of scipy.sparse.kron; gauss_demo's semiring (a
+    struct type, user add and mult) through mxm on a uniform graph of
+    n = 2^16, degree 8, exact against scipy's complex128 product.  Each
+    step's wall cold and warm, and the K1-K9 launches of its cold call."""
+    import scipy.sparse as sps
+    import torch
+
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch.examples import (context_demo, gauss_demo,
+                                              kron_demo, semiring_demo)
+    from graphblas_tpu_torch.kernels import spmv_onehot as OH
+    from graphblas_tpu_torch.ops import serialize as SER
+    BF16 = gt.types.BF16
+    t_phase = time.perf_counter()
+    walls, launched, info = {}, {}, {}
+
+    def step(name, fn):
+        reset_kernel_launches()
+        out, cold = timed(fn)
+        launched[name] = {k: v for k, v in kernel_launches().items() if v}
+        del out
+        out, warm = timed(fn)
+        walls[name] = (cold, warm)
+        return out
+
+    demo_checks(step, info)
+    t_demos = time.perf_counter() - t_phase
+
+    # BF16 at graph (b)
+    rng = np.random.default_rng(17)
+    n = S.shape[0]
+    W = S.copy()
+    W.data = rng.integers(1, 9, W.nnz).astype(np.float32)
+    A = gt.Matrix.from_scipy(W, dtype=BF16, device="cuda")
+    assert A.dtype is BF16 and A.values.dtype == torch.bfloat16
+    U = step("bf16_ewise_add", lambda: gt.ewise_add(A, gt.transpose(A),
+                                                    gt.operators.PLUS))
+    Uw = canon(W.astype(np.float64) + W.T.astype(np.float64))
+    info["bf16_ewise_nnz"] = U.nvals
+    assert U.nvals == Uw.nnz == 31_400_481, (U.nvals, Uw.nnz)
+    assert U.dtype is BF16
+    assert_sci(U, Uw, "bf16 ewise_add A + A'")
+    del U, Uw
+    x = gt.Vector.from_dense(torch.ones(n, dtype=torch.bfloat16,
+                                        device="cuda"))
+    y = step("bf16_mxv", lambda: gt.mxv(A, x, gt.semiring.PLUS_TIMES))
+    yv, yp = (gt.types.host(t).reshape(-1) for t in y.to_dense_pair())
+    rows = np.asarray(W.sum(axis=1), np.float64).ravel()
+    has = np.diff(W.indptr) > 0
+    assert y.dtype is BF16 and np.array_equal(yp, has), "bf16 mxv pattern"
+    assert np.array_equal(yv[has], bf16_round(rows[has])), "bf16 mxv"
+    info["bf16_max_row_sum"] = float(rows.max())
+    s = step("bf16_reduce_scalar", lambda: gt.reduce_scalar(
+        A, gt.monoid.PLUS))
+    total = float(W.data.astype(np.float64).sum())
+    assert abs(float(s) - total) <= bf16_ulp(total), (float(s), total)
+    info["bf16_total"], info["bf16_sum"] = total, float(s)
+    N = step("bf16_apply_ainv", lambda: gt.apply(A, gt.operators.AINV))
+    assert_sci(N, -W.astype(np.float64), "bf16 apply AINV")
+    del N
+    B = step("bf16_serialize", lambda: gt.deserialize(
+        gt.serialize(A, compression="none"), device="cuda"))
+    assert B.dtype is BF16 and torch.equal(B.indptr, A.indptr) and \
+        torch.equal(B.indices, A.indices) and torch.equal(
+            B.values.view(torch.int16), A.values.view(torch.int16)), \
+        "bf16 serialize"
+    del B
+    # the user algebra of semiring_demo, fp32 at graph (b)
+    A32 = gt.Matrix.from_scipy(W, device="cuda")
+    z = gt.Vector.from_dense(torch.zeros(n, device="cuda"))
+    y = step("lse_plus_mxv", lambda: gt.mxv(A32, z, semiring_demo.LSE_PLUS))
+    yv, yp = (t.cpu().numpy().reshape(-1) for t in y.to_dense_pair())
+    want = np.logaddexp.reduceat(W.data.astype(np.float64),
+                                 W.indptr[:-1][has])
+    assert np.array_equal(yp, has), "lse pattern"
+    info["lse_max_rel_err"] = float(np.max(np.abs(yv[has] - want)
+                                           / np.abs(want)))
+    assert info["lse_max_rel_err"] <= FP32_TOL, info["lse_max_rel_err"]
+    Wc = W.copy()
+    Wc.data = (Wc.data - 4) / 4
+    Ac = gt.Matrix.from_scipy(Wc, device="cuda")
+    C = step("clip01_apply", lambda: gt.apply(Ac, semiring_demo.CLIP01))
+    want = Wc.copy()
+    want.data = np.clip(want.data, 0.0, 1.0)
+    got_k, got_v = host_entries(C)
+    assert np.array_equal(got_k, csr_host_keys(W)) and \
+        np.array_equal(got_v, want.data), "clip01"
+    del C, Ac
+    # context_demo's threads: fp32 mxv under four Contexts (K2)
+    ones = torch.ones(n, dtype=torch.float32)
+    ys = step("context_threads", lambda: context_demo.run_threads(
+        A32, ones, torch.device("cuda"), 4))
+    assert launched["context_threads"].get("K2") == 4, launched
+    ref = OH.spmv(A32.indptr, A32.indices, A32.values,
+                  ones.to("cuda"), n)
+    assert all(torch.equal(ys[t], ref) for t in range(4)), \
+        "threads != one K2 call"
+    yk = ref.cpu().numpy()
+    assert np.array_equal(yk[has], rows[has].astype(np.float32)), \
+        "K2 row sums"
+    # pack / unpack of (b)
+    def pack_unpack():
+        meta, arrays = SER.unpack(A32.dup())
+        return SER.pack(A32.shape, meta["dtype"], meta["format"],
+                        meta["orient"], device="cuda",
+                        **{k: v for k, v in arrays.items() if v is not None})
+    P = step("pack_unpack", pack_unpack)
+    assert all(torch.equal(getattr(P, k), getattr(A32, k))
+               for k in ("indptr", "indices", "values")), "pack/unpack"
+    del P, A, A32, x, y, z, ys, ref
+    # kron_demo's seed to 10 factors
+    r = step("kron_10", lambda: kron_demo.main(device="cuda", levels=9))
+    seed = sps.csr_matrix((np.ones(5), kron_demo.SEED), shape=(3, 3))
+    K = seed
+    for _ in range(9):
+        K = sps.kron(K, seed, format="csr")
+    assert (r["nrows"], r["nvals"]) == (59_049, 9_765_625) == \
+        (K.shape[0], K.nnz), (r["nrows"], r["nvals"])
+    assert_sci(r["graph"], K, "kron 10 factors")
+    info["kron_10"] = (r["nrows"], r["nvals"], r["max_out_degree"])
+    del r, K
+    # gauss_demo's semiring through mxm at n = 2^16, degree 8
+    gauss, _, sr = gauss_demo.algebra()
+    Su = uniform_graph(1 << 16, 8, 17)
+    Su.sort_indices()
+    re, im = (rng.integers(-3, 4, Su.nnz) for _ in range(2))
+    rr = np.repeat(np.arange(Su.shape[0]), np.diff(Su.indptr))
+    G = gt.Matrix.from_coo(torch.from_numpy(rr).cuda(),
+                           torch.from_numpy(Su.indices.astype(np.int64))
+                           .cuda(),
+                           torch.from_numpy(np.stack([re, im], 1)).cuda(),
+                           Su.shape, dtype=gauss)
+    products = int(np.diff(Su.indptr)[Su.indices].sum())
+    assert products >= 10 ** 6, products
+    C = step("gauss_mxm", lambda: gt.mxm(G, G, sr))
+    Sp = sps.csr_matrix((np.ones(Su.nnz, np.int64), Su.indices, Su.indptr),
+                        shape=Su.shape)
+    Pk = csr_host_keys(canon(Sp @ Sp))
+    Sc = sps.csr_matrix((re + 1j * im, Su.indices, Su.indptr),
+                        shape=Su.shape)
+    Cc = (Sc @ Sc).tocsr()
+    Cc.sort_indices()
+    ck = csr_host_keys(Cc)
+    at = np.searchsorted(ck, Pk)
+    hit = (at < ck.size) & (ck[np.minimum(at, ck.size - 1)] == Pk)
+    want = np.where(hit, Cc.data[np.minimum(at, ck.size - 1)], 0)
+    got_k, got_v = host_entries(C)
+    assert np.array_equal(got_k, Pk), "gauss mxm pattern"
+    assert np.array_equal(got_v[:, 0], want.real) and \
+        np.array_equal(got_v[:, 1], want.imag), "gauss mxm values"
+    info["gauss_mxm"] = (Su.shape[0], Su.nnz, products, C.nvals)
+    del C, G
+    print(f"[17 surface] {card} | demos at their sizes and BF16, the user "
+          f"algebra, threads, pack/unpack at graph (b) RMAT-20 n={n} "
+          f"nnz={W.nnz} weights 1..8; kron 10 factors; gauss mxm; every "
+          f"step exact vs numpy/scipy (LSE <= {FP32_TOL} rel, BF16 sum "
+          f"<= 1 ulp) | " + " ".join(f"{k}={v}" for k, v in info.items())
+          + " | walls s (cold, warm): " + " ".join(
+              f"{k}=({c:.4f}, {w:.4f})" for k, (c, w) in walls.items())
+          + " | K1-K9 launched by each step's cold call: " + "; ".join(
+              f"{k}: {v or 'none'}" for k, v in launched.items())
+          + f" | demos {t_demos:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2367,6 +2628,8 @@ def main():
     op_layer_path(graph_b, card)
     # 16. the distributed tier on a world-size-1 NCCL group
     dist_path(graph_b, card)
+    # 17. the demos, GxB_BF16, the user algebra, threads
+    surface_path(graph_b, card)
     # result lines
     print(card_line())
     print(json.dumps({"kernels": [

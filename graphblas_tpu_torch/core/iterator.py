@@ -10,8 +10,7 @@ shape."""
 from __future__ import annotations
 
 
-def _host(t):
-    return t.cpu().numpy()
+from .types import host as _host
 
 
 class EntryIterator:

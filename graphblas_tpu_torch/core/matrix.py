@@ -197,13 +197,12 @@ class Matrix:
         m = want(sp)
         m.sort_indices()
         dt = T.lookup(dtype) if dtype is not None else T.lookup(m.dtype)
-        vals = m.data.astype(dt.np_dtype)
         return cls(sp.shape, dt, SPARSE, orient,
                    indptr=_as_tensor(m.indptr.astype(np.int32),
                                      device=device),
                    indices=_as_tensor(m.indices.astype(np.int32),
                                       device=device),
-                   values=_as_tensor(vals, device=device))
+                   values=T.from_host(m.data, dt, device))
 
     @classmethod
     def from_mtx(cls, path, dtype=None, orient=None, device=None):
@@ -219,7 +218,7 @@ class Matrix:
         import scipy.sparse as sps
         a = self.to_format(SPARSE)
         klass = sps.csr_matrix if a.orient == ROW else sps.csc_matrix
-        return klass((a._vals_expanded().cpu().numpy(),
+        return klass((T.host(a._vals_expanded()),
                       a.indices.cpu().numpy(), a.indptr.cpu().numpy()),
                      shape=self.shape)
 
@@ -480,7 +479,7 @@ class Matrix:
 
     def _add_pending(self, rows, cols, vals, dup):
         if isinstance(vals, torch.Tensor):
-            vals = vals.cpu().numpy()
+            vals = T.host(vals)
         self._pending.append((np.atleast_1d(np.asarray(rows)),
                               np.atleast_1d(np.asarray(cols)), vals, dup))
         self._nvals_cache = None
@@ -604,7 +603,7 @@ class Matrix:
         print(f"{name or self.name or type(self).__name__}: {self!r}",
               file=out)
         if level >= 2:
-            r, c, v = (t.cpu().numpy() for t in self.coo())
+            r, c, v = (T.host(t) for t in self.coo())
             shown = len(r) if level >= 3 else min(8, len(r))
             for k in range(shown):
                 print(f"  ({r[k]},{c[k]})  {v[k]}", file=out)

@@ -16,6 +16,16 @@ UINT32 in int64, wrapped with a mask; UINT64 as its int64 bit pattern,
 ordered by ``order_key`` (the sign bit flipped).  Data moves through the
 same-width signed view (``bits``/``unbits``, ``take``, ``where``).
 
+GxB_BF16 is the JAX package's TPU extension (not in the reference).
+numpy has no bfloat16 without ``ml_dtypes``, which the port does not
+use, so a BF16 array crosses to the host as float32, which holds every
+bf16 value exactly (``host``/``from_host``): ``to_scipy``, the values of
+``from_coo``, scalars read back.  The JAX package hands out
+``ml_dtypes.bfloat16`` arrays there.  PLUS reductions of BF16 (the row
+and scalar reduce, and the sums of mxv/vxm/mxm) add in float32 and round
+once to bf16; the JAX package adds in bf16, so the two agree bitwise
+only where every partial sum is exact in bf16.
+
 A user-defined struct type (``struct_type``; reference: GrB_Type_new, as
 in Demo gauss_demo.c / wildtype_demo.c) has a field shape: its values
 are tensors of the field dtype with trailing dims ``shape``, stored
@@ -90,6 +100,10 @@ FC64 = Type("GxB_FC64", np.dtype(np.complex128), torch.complex128)
 ALL_TYPES = [BOOL, INT8, INT16, INT32, INT64, UINT8, UINT16, UINT32, UINT64,
              FP32, FP64, FC32, FC64]
 
+# bfloat16, its host carrier float32 (see the module docstring); as in the
+# JAX package it is found by name and dtype but is not in ALL_TYPES
+BF16 = Type("GxB_BF16", np.dtype(np.float32), torch.bfloat16)
+
 # the carriers of the unsigned dtypes torch cannot compute on, and their
 # same-width signed views
 _CARRIER = {torch.uint16: torch.int32, torch.uint32: torch.int64,
@@ -100,8 +114,8 @@ _MASK = {torch.uint16: 0xFFFF, torch.uint32: 0xFFFFFFFF}
 TOP = -(1 << 63)          # the int64 sign bit
 
 _BY_NP = {t.np_dtype: t for t in ALL_TYPES}
-_BY_TORCH = {t.torch_dtype: t for t in ALL_TYPES}
-_BY_NAME = {t.name: t for t in ALL_TYPES}
+_BY_TORCH = {t.torch_dtype: t for t in ALL_TYPES + [BF16]}
+_BY_NAME = {t.name: t for t in ALL_TYPES + [BF16]}
 
 
 _STRUCTS: dict = {}      # struct types by name, as they are made
@@ -140,10 +154,28 @@ def lookup(x) -> Type:
         if isinstance(x, str):
             raise KeyError(f"no GraphBLAS type named {x!r}") from None
         dt = np.dtype(x.dtype)
+    if dt.name == "bfloat16":          # an ml_dtypes array, where present
+        return BF16
     try:
         return _BY_NP[dt]
     except KeyError:
         raise KeyError(f"no GraphBLAS type for dtype {dt!r}") from None
+
+
+def host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array: BF16 as its float32 carrier,
+    the unsigned types through their signed views."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.float().numpy()
+    return bits(t).numpy().view(lookup(t.dtype).np_dtype)
+
+
+def from_host(arr, ty: Type, device) -> torch.Tensor:
+    """A numpy array (of ``ty``'s host dtype) as a tensor of ``ty`` on
+    ``device``."""
+    arr = np.array(arr, dtype=ty.np_dtype, order="C")    # a 0-d stays 0-d
+    return torch.from_numpy(arr).to(device).to(ty.torch_dtype)
 
 
 def wide_unsigned(dt) -> bool:
@@ -281,5 +313,11 @@ def _float_to_int(x: torch.Tensor, to: Type) -> torch.Tensor:
 
 def upcast_pair(a: Type, b: Type) -> Type:
     """Type of a op b under numpy promotion (the JAX package's rule, so
-    both packages pick the same output type)."""
+    both packages pick the same output type).  BF16 with a bool or an
+    integer stays BF16, with a wider float or a complex widens to it, as
+    ``ml_dtypes`` promotes."""
+    if BF16 in (a, b):
+        other = b if a == BF16 else a
+        if other == BF16 or not (other.is_float or other.is_complex):
+            return BF16
     return lookup(np.promote_types(a.np_dtype, b.np_dtype))

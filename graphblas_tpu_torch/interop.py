@@ -62,7 +62,8 @@ def matrix_from_arrays(shape, dtype_name, fmt, orient, indptr, h, indices,
                indptr=_t(indptr, device, np.int32),
                h=_t(h, device, np.int32),
                indices=_t(indices, device, np.int32),
-               values=_t(values, device, ty.np_dtype),
+               values=None if values is None else T.from_host(
+                   values, ty, device),
                bitmap=_t(bitmap, device, np.bool_),
                device=device)
     M._pending = _pending(pending)

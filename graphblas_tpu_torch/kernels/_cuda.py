@@ -8,6 +8,10 @@ would include PyTorch's headers and take minutes per build.)  ``build()``
 starts one ``nvcc`` per missing library, all at once.  Nothing here runs
 at import time: the CPU tests import this module on machines with no
 compiler and no card.  A build failure raises; there is no fallback.
+Threads of one process that first call a kernel together (each under
+its own ``Context``) build and load each library once: ``build()`` and
+``lib()`` hold one lock, and every compiler writes a temporary file of
+its own.
 
 Each call launches on ``torch.cuda.current_stream()``, checks the
 launcher's ``cudaGetLastError()`` and raises if it is not 0.
@@ -20,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -33,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict = {}
+_lock = threading.RLock()   # build() and lib()'s build-and-load
 
 
 def _nvcc() -> str:
@@ -60,15 +66,21 @@ def build(names=None) -> dict:
     {name: library path}.  Each compiler's resource report (``-Xptxas
     -v``) is kept in ``<library>.log``."""
     names = list(SOURCES) if names is None else list(names)
-    out = {n: library_path(n) for n in names}
-    todo = [n for n in names if not out[n].exists()]
-    if not todo:
-        return out
+    with _lock:
+        out = {n: library_path(n) for n in names}
+        todo = [n for n in names if not out[n].exists()]
+        if todo:
+            _compile(todo, out)
+    return out
+
+
+def _compile(todo, out) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for n in todo:
-        tmp = out[n].with_name(f"{out[n].name}.{os.getpid()}.tmp")
+        tmp = out[n].with_name(f"{out[n].name}.{os.getpid()}."
+                               f"{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
         procs[n] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -77,6 +89,7 @@ def build(names=None) -> dict:
     for n, (cmd, tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n"
                           f"{log}")
             continue
@@ -84,7 +97,6 @@ def build(names=None) -> dict:
         os.replace(tmp, out[n])
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return out
 
 
 def build_log(name: str) -> str:
@@ -127,12 +139,16 @@ def lib(name: str) -> ctypes.CDLL:
     """The loaded library of one source (built on first use).  Each
     library exports its own ``gb_error_string``."""
     so = _libs.get(name)
-    if so is None:
-        so = ctypes.CDLL(str(build([name])[name]))
-        _BIND[name](so)
-        so.gb_error_string.argtypes = [ctypes.c_int]
-        so.gb_error_string.restype = ctypes.c_char_p
-        _libs[name] = so
+    if so is not None:
+        return so
+    with _lock:
+        so = _libs.get(name)
+        if so is None:
+            so = ctypes.CDLL(str(build([name])[name]))
+            _BIND[name](so)
+            so.gb_error_string.argtypes = [ctypes.c_int]
+            so.gb_error_string.restype = ctypes.c_char_p
+            _libs[name] = so
     return so
 
 

@@ -19,6 +19,9 @@ from ..core.monoid import Monoid
 
 KEY = torch.int64  # combined (vec, idx) sort key: vec * veclen + idx
 
+# PLUS reductions of BF16 add in float32 and round once (types.BF16)
+ACC = {torch.bfloat16: torch.float32}
+
 
 def expand_rowids(indptr: torch.Tensor, nnz: int, nvec: int) -> torch.Tensor:
     """Vector id of each stored entry, from the CSR/CSC pointer array."""
@@ -100,9 +103,10 @@ def segment_reduce(vals: torch.Tensor, seg_ids: torch.Tensor,
     elif ty.is_bool and name in ("GrB_TIMES", "GrB_MIN"):
         name = "GrB_LAND"
     if name == "GrB_PLUS":
-        out = torch.zeros((num_segments,) + tail, dtype=vals.dtype,
+        acc = ACC.get(vals.dtype, vals.dtype)
+        out = torch.zeros((num_segments,) + tail, dtype=acc,
                           device=vals.device)
-        return out.index_add_(0, seg, vals)
+        return out.index_add_(0, seg, vals.to(acc)).to(vals.dtype)
     if name == "GrB_TIMES":
         return _scatter(vals, seg, num_segments, 1, "prod")
     if name in ("GrB_MIN", "GrB_MAX"):
@@ -214,7 +218,8 @@ def full_reduce(vals: torch.Tensor, monoid: Monoid, dtype=None
     elif ty.is_bool and name in ("GrB_TIMES", "GrB_MIN"):
         name = "GrB_LAND"
     if name == "GrB_PLUS":
-        return vals.sum(dtype=ty.torch_dtype)
+        acc = ACC.get(ty.torch_dtype, ty.torch_dtype)
+        return vals.sum(dtype=acc).to(ty.torch_dtype)
     if name == "GrB_TIMES":
         return vals.prod(dtype=ty.torch_dtype)
     if name in ("GrB_MIN", "GrB_MAX"):

@@ -34,13 +34,14 @@ from . import segment as K
 launches = 0
 
 # accumulation dtype of the plain versions' sums
-ACC = {torch.float32: torch.float64}
+ACC = {torch.float32: torch.float64, torch.bfloat16: torch.float32}
 
 
 def spmv_plain(indptr, indices, values, x, m: int) -> torch.Tensor:
     """Plain torch version: gather, multiply, ``index_add_`` by row.  fp32
     products are summed in fp64 (``ACC``), so a row of 10^5 nonzeros
-    stays within the fp32 kernel's error class of the exact sum."""
+    stays within the fp32 kernel's error class of the exact sum; bf16
+    ones in fp32."""
     nnz = int(indices.shape[0])
     rows = K.expand_rowids(indptr, nnz, m)
     acc = ACC.get(values.dtype, values.dtype)

@@ -45,8 +45,8 @@ def _scalar_tensor(A, C: Matrix) -> torch.Tensor:
     """The scalar as a 0-d tensor of C's type on C's device."""
     if isinstance(A, torch.Tensor):
         A = A.item()
-    val = np.asarray(A).astype(C.dtype.np_dtype)
-    return torch.from_numpy(val.reshape(1)).to(C.device).reshape(())
+    return T.from_host(np.asarray(A).reshape(1), C.dtype,
+                       C.device).reshape(())
 
 
 def assign(C: Matrix, A, I=None, J=None, *, mask=None, accum=None,

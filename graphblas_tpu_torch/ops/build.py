@@ -77,6 +77,8 @@ def build_matrix(cls, rows, cols, vals, shape, dtype, dup, orient, iso,
         v = vals.to(device)
     else:
         arr = np.asarray(vals)
+        if arr.dtype.name == "bfloat16":    # an ml_dtypes array
+            dt, arr = dt or T.BF16, arr.astype(np.float32)
         v = _as_tensor(arr if arr.dtype.kind in "biufc"
                        else arr.astype(np.float64), device=device)
     if dt is None:
@@ -142,7 +144,7 @@ def apply_pending(A: Matrix, pend) -> None:
         flat = torch.from_numpy((ii * A.ncols + jj) << 1 | dd).to(dev)
         pos, gone = flat >> 1, (flat & 1) == 1
         vals = A._vals_expanded().reshape(-1).clone()
-        T.bits(vals)[pos] = T.bits(torch.from_numpy(vv).to(dev))
+        T.bits(vals)[pos] = T.bits(T.from_host(vv, A.dtype, dev))
         bm = (A.bitmap.reshape(-1).clone() if A.fmt == BITMAP else
               torch.ones(A.nrows * A.ncols, dtype=torch.bool, device=dev))
         bm[pos] = ~gone
@@ -159,7 +161,7 @@ def apply_pending(A: Matrix, pend) -> None:
     order = np.argsort(pk, kind="stable")
     pkd = torch.from_numpy(pk[order] << 1 | dd[order]).to(dev)
     pk_d, del_d = pkd >> 1, (pkd & 1) == 1
-    vv_d = torch.from_numpy(np.ascontiguousarray(vv[order])).to(dev)
+    vv_d = T.from_host(vv[order], A.dtype, dev)
     rows, cols = S._coords()
     vec_ids, idx = (rows, cols) if S.orient == ROW else (cols, rows)
     ekeys = K.make_key(vec_ids, idx, veclen)

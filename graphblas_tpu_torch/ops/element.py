@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core import errors as E
+from ..core import types as T
 from ..core.matrix import BITMAP, FULL, HYPER, ROW
 
 
@@ -42,7 +43,7 @@ def _value(A, at):
     """The stored value at ``at`` (an index into A.values) as a numpy
     scalar of A's type."""
     v = A.values.reshape(-1)[0] if A.iso else A.values[at]
-    return v.cpu().numpy()[()]
+    return T.host(v)[()]
 
 
 def is_stored(A, i, j) -> bool:

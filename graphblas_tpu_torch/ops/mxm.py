@@ -222,8 +222,9 @@ def _spmspv_scatter(u, A, sr, zt):
     pres = torch.zeros(m, dtype=torch.bool, device=dev)
     pres[j] = True
     if add_name == "GrB_PLUS":
-        y = torch.zeros(m, dtype=kt.torch_dtype, device=dev).index_add_(
-            0, j, prod)
+        acc = K.ACC.get(kt.torch_dtype, kt.torch_dtype)   # BF16: float32
+        y = torch.zeros(m, dtype=acc, device=dev).index_add_(
+            0, j, prod.to(acc))
     else:
         ident = sr.add.identity_tensor(kt, dev)
         red = "amin" if add_name == "GrB_MIN" else "amax"

@@ -61,5 +61,5 @@ def reduce_to_scalar(A: Matrix, mon: Monoid, *, accum=None, init=None,
     r = K.full_reduce(vals, mon, dt)
     if accum is not None and init is not None:
         r = cast(accum.fn(T.scalar(init, dt, r.device), r), dt)
-    return np.asarray(r.cpu().numpy())[()]
+    return np.asarray(T.host(r))[()]
 

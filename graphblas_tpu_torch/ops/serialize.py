@@ -12,7 +12,9 @@ indptr, h, indices, values, bitmap.  Codecs: ``none``, ``zlib``, ``zstd``
 back to zlib) and ``gbz``: a 1-D integer array is delta coded
 (``utils.native.delta_encode``: varint ``gbd1`` with the native library,
 plain ``raw0`` without), any other array byte-shuffled, and zlib
-finishes both.  Arrays go through the host: UINT64 as its bytes.  A
+finishes both.  Arrays go through the host: UINT64 as its bytes, BF16
+as its raw 2-byte values through an int16 view (numpy has no bfloat16
+here), named "bfloat16" in the header as the JAX package names them.  A
 struct type is named in the header; a reader that does not know the name
 makes the type from the values array (the JAX package's reader cannot:
 ``graphblas_tpu/ops/serialize.py:150`` looks the name up among the
@@ -61,9 +63,11 @@ def register_codec(name, compress, decompress):
     _CODECS[name] = (compress, decompress)
 
 
-def _gbz_compress_array(npa: np.ndarray, level: int) -> bytes:
+def _gbz_compress_array(npa: np.ndarray, level: int,
+                        shuffle: bool = False) -> bytes:
     from ..utils import native as NV
-    if np.issubdtype(npa.dtype, np.integer) and npa.ndim == 1:
+    if np.issubdtype(npa.dtype, np.integer) and npa.ndim == 1 \
+            and not shuffle:
         body = NV.delta_encode(npa.astype(np.int64))
         return b"D" + zlib.compress(body, min(level + 2, 9))
     return b"S" + zlib.compress(NV.byteshuffle(npa), min(level + 2, 9))
@@ -78,8 +82,16 @@ def _gbz_decompress_array(blob: bytes, dtype, shape) -> np.ndarray:
     return NV.byteunshuffle(body, dtype, n).reshape(shape)
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().contiguous().numpy()
+BF16_NAME = "bfloat16"
+
+
+def _host(t: torch.Tensor):
+    """(numpy array, dtype name in the header) of a tensor's bytes."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy(), BF16_NAME
+    npa = t.numpy()
+    return npa, str(npa.dtype)
 
 
 def serialize(A: Matrix, compression=None, level=None, desc=None) -> bytes:
@@ -100,10 +112,11 @@ def serialize(A: Matrix, compression=None, level=None, desc=None) -> bytes:
     for name in ARRAYS:
         arr = getattr(A, name)
         if arr is not None:
-            npa = _host(arr)
-            enc = (_gbz_compress_array(npa, level) if compression == "gbz"
+            npa, dname = _host(arr)
+            enc = (_gbz_compress_array(npa, level, dname == BF16_NAME)
+                   if compression == "gbz"
                    else _CODECS[compression][0](npa.tobytes(), level))
-            arrays[name] = (str(npa.dtype), list(npa.shape), enc)
+            arrays[name] = (dname, list(npa.shape), enc)
     header = {
         "version": VERSION,
         "class": type(A).__name__,
@@ -145,12 +158,15 @@ def deserialize(blob: bytes, device=None) -> Matrix:
     for name, meta in header["arrays"].items():
         raw = blob[pos:pos + meta["nbytes"]]
         pos += meta["nbytes"]
+        bf16 = meta["dtype"] == BF16_NAME
+        dtype = np.int16 if bf16 else meta["dtype"]
         if comp == "gbz":
-            npa = _gbz_decompress_array(raw, meta["dtype"], meta["shape"])
+            npa = _gbz_decompress_array(raw, dtype, meta["shape"])
         else:
             npa = np.frombuffer(_CODECS[comp][1](raw),
-                                meta["dtype"]).reshape(meta["shape"])
-        arrays[name] = torch.from_numpy(npa.copy()).to(device)
+                                dtype).reshape(meta["shape"])
+        t = torch.from_numpy(npa.copy())
+        arrays[name] = (t.view(torch.bfloat16) if bf16 else t).to(device)
     klass = {"Matrix": Matrix, "Vector": Vector, "Scalar": Scalar}[
         header["class"]]
     return pack(header["shape"], _blob_type(header), header["format"],

@@ -108,8 +108,9 @@ def ineligible(sr, zt, n: int):
         return f"struct type {zt.name}"
     if n >= (1 << 31) - 1:
         return "n beyond int32 columns"
-    if zt.np_dtype not in KDT and not (zt.np_dtype == np.int64
-                                       and sr.mult.name == "GrB_ONEB"):
+    if zt == T.BF16 or zt.np_dtype not in KDT and not (
+            zt.np_dtype == np.int64 and sr.mult.name == "GrB_ONEB"):
+        # BF16 (float32 on the host) sums on the classic path
         return f"type {zt.name}"
     _, logical = _kdt_for(zt)
     if SRD.kernel_op(sr.add, logical) is None:

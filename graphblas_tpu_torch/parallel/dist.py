@@ -308,9 +308,7 @@ def _vec(x, device) -> torch.Tensor:
     return _as_tensor(x, device=device).reshape(-1)
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A tensor on the host as numpy, unsigned types included."""
-    return T.bits(t).cpu().numpy().view(T.lookup(t.dtype).np_dtype)
+_host = T.host      # a tensor on the host as numpy, any type
 
 
 def _padded(src: torch.Tensor, cap: int) -> torch.Tensor:

@@ -775,3 +775,49 @@ def test_dist_mxm_on_card_matches_mxm(nccl_group):
     assert torch.equal(DC.indptr, C.indptr)
     assert torch.equal(DC.indices[:DC.nnz], C.indices)
     assert torch.equal(DC.values[:DC.nnz], C.values)
+
+
+def test_threads_first_launch_k2_from_cold_build(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """Four threads first-launch K2 together from an empty build
+    directory (each under its own Context, as examples/context_demo's
+    threads): spmv.cu is built and loaded once, no temporary file is
+    left, and the four results are bitwise equal to each other and to
+    one more K2 call."""
+    import threading
+    import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch.core import context
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_cuda, "_libs", {})
+    rng = np.random.default_rng(41)
+    S, ip, ix, v, x = _degree_operands(rng, _random_degrees(rng),
+                                       cuda_device)
+    m = S.shape[0]
+    start = threading.Barrier(4)
+    out, errors = {}, []
+    before = OH.launches
+
+    def run(tid):
+        try:
+            with gt.Context(device=cuda_device, name=f"worker{tid}"):
+                xs = context.device_put_ctx(x.cpu())
+                start.wait()
+                out[tid] = OH.spmv(ip, ix, v, xs, m)
+        except Exception as exc:      # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert OH.launches == before + 4
+    assert [p.name for p in tmp_path.glob("*.so")] == \
+        [_cuda.library_path("spmv").name]
+    assert not list(tmp_path.glob("*.tmp"))
+    ref = OH.spmv(ip, ix, v, x, m)
+    for tid in range(4):
+        assert torch.equal(out[tid], ref), tid
+    _check(ref, OH.spmv_plain(ip, ix, v, x, m), "plus", 1e-5)
