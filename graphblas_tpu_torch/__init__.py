@@ -30,7 +30,8 @@ from .core import context as context
 from .core import descriptor, errors, monoid, semiring, types
 from .core import names as names
 from .core import ops as operators
-from .core.config import burble, finalize, get_option, init, set_option
+from .core.config import (burble, finalize, get_option, init, set_option,
+                          trace_counters, trace_records, trace_reset)
 from .core.context import Context
 from .core.descriptor import Descriptor
 from .core.matrix import (BITMAP, COL, FULL, HYPER, ROW, SPARSE, Matrix,

@@ -12,7 +12,16 @@ Two tiers per algorithm, as in the JAX package:
 
 The fused loops test their stopping condition on the host once per step
 (the JAX package compiles them into one while_loop); capturing them in a
-CUDA graph would remove that sync.
+CUDA graph would remove that sync.  Each test is one
+``config.blocking_copy`` (counted ``host_syncs``); the source's start value
+is a ``fill_`` of one element, not an indexed store (which copies a host
+scalar to the card and waits).
+
+Spans (``config.timed``): a root span per fused entry point
+(``algorithms.sssp``, ``.pagerank_fused``, ``.bfs_levels_fused``,
+``.connected_components``), one per host-checked batch of a loop
+(``algorithms.sssp.batch``, ``.pagerank.step``, ``.bfs.batch``) and one
+per plan-cache lookup (``algorithms.pattern_plan``, ``.sssp_plan``).
 """
 
 from __future__ import annotations
@@ -38,11 +47,13 @@ from ..utils.tensor_cache import TensorCache
 _pattern_plans: dict = {}
 
 
+@CFG.timed("algorithms.pattern_plan")
 def _pattern_route_plan(At: Matrix, build: bool):
     """Plan for y = A'x on the pattern of A (At = A in CSC = A' in CSR),
     cached per structure with identity re-checks."""
     if not CFG.GLOBAL.kernels_enabled:
         return None
+    CFG.count("spmv_plan.lookups")
     key = (id(At.indptr), id(At.indices), At.shape)
     ent = _pattern_plans.get(key)
     if ent is not None and ent[0] is At.indptr and ent[1] is At.indices:
@@ -103,17 +114,20 @@ def _routed_bfs(n: int, source: int, plan) -> torch.Tensor:
     no-ops)."""
     dev = plan.device
     levels = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    levels[source] = 0
+    levels.narrow(0, source, 1).fill_(0)
     f = torch.zeros(n, dtype=torch.float32, device=dev)
-    f[source] = 1.0
+    f.narrow(0, source, 1).fill_(1.0)
     depth = 0
     while True:
-        for _ in range(4):
-            nxt = (SPRT.spmv_route(f, plan) > 0) & (levels < 0)
-            depth += 1
-            levels = torch.where(nxt, torch.full_like(levels, depth), levels)
-            f = nxt.to(torch.float32)
-        if not bool((f > 0).any()):
+        with CFG.timed("algorithms.bfs.batch"):
+            for _ in range(4):
+                nxt = (SPRT.spmv_route(f, plan) > 0) & (levels < 0)
+                depth += 1
+                levels = torch.where(nxt, torch.full_like(levels, depth),
+                                     levels)
+                f = nxt.to(torch.float32)
+            more = bool(CFG.blocking_copy((f > 0).any(), "cpu"))
+        if not more:
             return levels
 
 
@@ -122,11 +136,11 @@ def _bfs_fused_plain(indptr, indices, source: int, n: int) -> torch.Tensor:
     rows = K.expand_rowids(indptr, nnz, n).long()
     cols = indices.long()
     levels = torch.full((n,), -1, dtype=torch.int32, device=indptr.device)
-    levels[source] = 0
+    levels.narrow(0, source, 1).fill_(0)
     frontier = torch.zeros(n, dtype=torch.bool, device=indptr.device)
-    frontier[source] = True
+    frontier.narrow(0, source, 1).fill_(True)
     depth = 0
-    while bool(frontier.any()):
+    while bool(CFG.blocking_copy(frontier.any(), "cpu")):
         # next[j] = OR over edges (i, j) of frontier[i] — scatter-or
         nxt = torch.zeros(n, dtype=torch.bool, device=indptr.device)
         nxt[cols[frontier[rows]]] = True
@@ -137,6 +151,7 @@ def _bfs_fused_plain(indptr, indices, source: int, n: int) -> torch.Tensor:
     return levels
 
 
+@CFG.timed("algorithms.bfs_levels_fused")
 def bfs_levels_fused(A: Matrix, source: int, optimize=False) -> torch.Tensor:
     """BFS levels as an int32 tensor (-1 = unreached).  With a plan
     (``optimize=True`` or already cached) each level is one planned SpMV
@@ -208,18 +223,21 @@ def pagerank(A: Matrix, damping=0.85, tol=1e-6, max_iter=100) -> Vector:
 def _pagerank_loop(step, r, tol, max_iter):
     if tol <= 0:
         for _ in range(max_iter):
-            r = step(r)
+            with CFG.timed("algorithms.pagerank.step"):
+                r = step(r)
         return r, max_iter
     it = 0
     delta = math.inf
     while it < max_iter and delta > tol:
-        rn = step(r)
-        delta = float((rn - r).abs().sum())
+        with CFG.timed("algorithms.pagerank.step"):
+            rn = step(r)
+            delta = float(CFG.blocking_copy((rn - r).abs().sum(), "cpu"))
         r = rn
         it += 1
     return r, it
 
 
+@CFG.timed("algorithms.pagerank_fused")
 def pagerank_fused(A: Matrix, damping=0.85, tol=1e-6, max_iter=100,
                    optimize=False):
     """FP32 PageRank over A's CSC arrays; returns (r, iterations).  With a
@@ -296,11 +314,13 @@ def triangle_count(A: Matrix) -> int:
 _sssp_plans: dict = {}
 
 
+@CFG.timed("algorithms.sssp_plan")
 def _sssp_route_plan(At: Matrix, build: bool):
     """Min-plus plan on A' (values kept, unlike the pattern plans), cached
     per structure identity."""
     if not CFG.GLOBAL.kernels_enabled:
         return None
+    CFG.count("spmv_plan.lookups")
     key = (id(At.indptr), id(At.indices), id(At.values), At.shape)
     ent = _sssp_plans.get(key)
     if ent is not None and ent[0] is At.indptr and ent[1] is At.indices:
@@ -320,14 +340,16 @@ def _routed_sssp(n: int, source: int, plan) -> torch.Tensor:
     """Bellman-Ford over a min-plus plan (spmv_route_monoid), four
     relaxations per host check."""
     d = torch.full((n,), math.inf, dtype=torch.float32, device=plan.device)
-    d[source] = 0.0
+    d.narrow(0, source, 1).fill_(0.0)
     it = 0
     while it < n + 4:
-        nd = d
-        for _ in range(4):
-            relax = SPRT.spmv_route_monoid(nd, plan, add="min", mul="plus")
-            nd = torch.minimum(nd, relax)
-        changed = bool((nd < d).any())
+        with CFG.timed("algorithms.sssp.batch"):
+            nd = d
+            for _ in range(4):
+                relax = SPRT.spmv_route_monoid(nd, plan, add="min",
+                                               mul="plus")
+                nd = torch.minimum(nd, relax)
+            changed = bool(CFG.blocking_copy((nd < d).any(), "cpu"))
         d = nd
         it += 4
         if not changed:
@@ -338,7 +360,7 @@ def _routed_sssp(n: int, source: int, plan) -> torch.Tensor:
 def _sssp_fused_plain(rows, cols, w, source: int, n: int,
                       max_iter: int) -> torch.Tensor:
     dist = torch.full((n,), math.inf, dtype=torch.float64, device=w.device)
-    dist[source] = 0.0
+    dist.narrow(0, source, 1).fill_(0.0)
     w = w.to(torch.float64)
     rows, cols = rows.long(), cols.long()
     it = 0
@@ -346,12 +368,13 @@ def _sssp_fused_plain(rows, cols, w, source: int, n: int,
     while changed and it < max_iter:
         nd = dist.scatter_reduce(0, cols, dist[rows] + w, "amin",
                                  include_self=True)
-        changed = bool((nd < dist).any())
+        changed = bool(CFG.blocking_copy((nd < dist).any(), "cpu"))
         dist = nd
         it += 1
     return dist
 
 
+@CFG.timed("algorithms.sssp")
 def sssp(A: Matrix, source: int, max_iter: int | None = None,
          optimize=False) -> torch.Tensor:
     """Single-source shortest paths via Bellman-Ford over the min-plus
@@ -392,6 +415,7 @@ def sssp_grb(A: Matrix, source: int) -> Vector:
 # Connected components (FastSV)
 # ---------------------------------------------------------------------------
 
+@CFG.timed("algorithms.connected_components")
 def connected_components(A: Matrix) -> torch.Tensor:
     """Connected components via FastSV (LAGraph; min-hooking with pointer
     jumping), A taken as undirected: both directions of every edge.
@@ -414,6 +438,6 @@ def _cc_fastsv(rows, cols, n: int) -> torch.Tensor:
         for tgt in (f[rows].long(), f[cols].long(), rows, cols):
             fn.scatter_reduce_(0, tgt, cand, "amin", include_self=True)
         fn = fn[fn.long()]
-        if not bool((fn != f).any()):
+        if not bool(CFG.blocking_copy((fn != f).any(), "cpu")):
             return fn
         f = fn

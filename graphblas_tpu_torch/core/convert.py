@@ -141,20 +141,23 @@ def _dense_to_sparse(a: Matrix, orient: str) -> Matrix:
 def _sparse_reorient(a: Matrix, orient: str) -> Matrix:
     from ..kernels import segment as K
     from ..kernels import static_route as STR
-    old_nvec = a._nvec_dim()
-    new_nvec = a.ncols if orient == COL else a.nrows
-    nnz = int(a.indices.shape[0])
-    vecid = K.expand_rowids(a.indptr, nnz, old_nvec)
-    # entries are stored by (old vec, idx); a stable sort on idx alone
-    # orders them by (new vec = idx, new idx = old vec)
-    sidx, order = torch.sort(a.indices, stable=True)
-    indptr = K.indptr_from_sorted(sidx, new_nvec, INDEX)
-    # the old vector ids and the values through the sort's order: one K9
-    # launch on the card
-    if a.iso:
-        idx, vals = STR.permute_rows(vecid, order), a.values
-    else:
-        idx, vals = STR.permute_rows(vecid, order, a.values.contiguous())
+    CFG.count("convert.reorients")
+    with CFG.timed("convert.reorient", a.device):
+        old_nvec = a._nvec_dim()
+        new_nvec = a.ncols if orient == COL else a.nrows
+        nnz = int(a.indices.shape[0])
+        vecid = K.expand_rowids(a.indptr, nnz, old_nvec)
+        # entries are stored by (old vec, idx); a stable sort on idx alone
+        # orders them by (new vec = idx, new idx = old vec)
+        sidx, order = torch.sort(a.indices, stable=True)
+        indptr = K.indptr_from_sorted(sidx, new_nvec, INDEX)
+        # the old vector ids and the values through the sort's order: one
+        # K9 launch on the card
+        if a.iso:
+            idx, vals = STR.permute_rows(vecid, order), a.values
+        else:
+            idx, vals = STR.permute_rows(vecid, order,
+                                         a.values.contiguous())
     return _clone(a, orient=orient, indptr=indptr, indices=idx.to(INDEX),
                   values=vals)
 

@@ -57,8 +57,15 @@ MULTIPLIES = ("times", "plus", "first", "second", "pair")
 launches = {"spmv_route": 0, "spmv_route_monoid": 0, "spmv_route_ds": 0}
 
 
-def _digest(indptr) -> str:
-    ip = np.ascontiguousarray(_host(indptr), np.int64)
+def _fetch(indptr) -> np.ndarray:
+    """indptr on the host as int64 (a device array waits for the work
+    queued before it)."""
+    if isinstance(indptr, torch.Tensor):
+        indptr = CFG.blocking_copy(indptr.detach(), "cpu").numpy()
+    return np.ascontiguousarray(indptr, np.int64)
+
+
+def _digest(ip: np.ndarray) -> str:
     return hashlib.sha256(ip.tobytes()).hexdigest()
 
 
@@ -97,7 +104,7 @@ class SpmvRoutePlan:
         """True when this plan tiles a matrix with this indptr."""
         return (tuple(shape) == (self.m, self.n)
                 and int(indptr.shape[0]) == self.m + 1
-                and _digest(indptr) == self.indptr_digest)
+                and _digest(_fetch(indptr)) == self.indptr_digest)
 
     def bind(self, indptr, indices, values) -> "SpmvRoutePlan":
         """The plan attached to a matrix's CSR arrays (moved to their
@@ -122,16 +129,25 @@ def _tile_rows(indptr) -> np.ndarray:
     return np.append(np.searchsorted(ends, starts), m).astype(np.int32)
 
 
+@CFG.timed("spmv_plan.build")
 def build_plan(indptr, indices, values, shape) -> SpmvRoutePlan:
     """Build the plan for a CSR matrix (host numpy work; the tiling lands
-    on the arrays' device, bound to them)."""
+    on the arrays' device, bound to them).  Spans: ``spmv_plan.build``
+    around ``.fetch`` (indptr to the host), ``.digest`` (its sha256),
+    ``.tile`` (the tiling) and ``.upload`` (the tiling to the device)."""
+    CFG.count("spmv_plan.builds")
     m, n = int(shape[0]), int(shape[1])
-    ip = np.ascontiguousarray(_host(indptr), np.int64)
+    with CFG.timed("spmv_plan.fetch"):
+        ip = _fetch(indptr)
+    with CFG.timed("spmv_plan.digest"):
+        digest = _digest(ip)
+    with CFG.timed("spmv_plan.tile"):
+        tiles = _tile_rows(ip)
     dev = values.device if isinstance(values, torch.Tensor) else "cpu"
-    plan = SpmvRoutePlan(
-        m=m, n=n, nnz=int(ip[-1]),
-        tile_row=torch.as_tensor(_tile_rows(ip), device=dev),
-        indptr_digest=_digest(ip))
+    with CFG.timed("spmv_plan.upload"):
+        tile_row = CFG.blocking_copy(tiles, dev)
+    plan = SpmvRoutePlan(m=m, n=n, nnz=int(ip[-1]), tile_row=tile_row,
+                         indptr_digest=digest)
     CFG.burble("route plan: m=%d nnz=%d tiles=%d", m, plan.nnz, plan.ntiles)
     if isinstance(values, torch.Tensor):
         plan = dataclasses.replace(plan, indptr=indptr, indices=indices,
@@ -153,6 +169,7 @@ def plan_for(indptr, indices, values, shape, build=True):
     algorithms' ``optimize=True``).  A build reuses the tiling of a plan
     cached for the same indptr and indices under other values (the fp64
     copy of an fp32 matrix's values, say)."""
+    CFG.count("spmv_plan.lookups")
     key = (id(indptr), id(indices), id(values), tuple(shape))
     ent = _plan_cache.get(key)
     if ent is not None and ent[0] is indptr and ent[1] is indices \
@@ -310,23 +327,26 @@ def _planned(x, plan: SpmvRoutePlan, add: str, mul: str, dtype,
                              "(register_plan)")
     if add not in MONOID_IDENTITY or mul not in MULTIPLIES:
         raise E.InvalidValue(f"unsupported semiring {add}.{mul}")
-    if not plan.values.is_cuda:
-        if plan.values.dtype != dtype or x.dtype != dtype:
-            raise TypeError(f"planned SpMV: expected {dtype} values and x")
-        return spmv_planned_plain(x, plan, add, mul)
     dev = plan.values.device
-    _cuda.require(x, "x", dtype, dev, plan.n)
-    _cuda.require(plan.values, "values", dtype, dev, plan.nnz)
-    _cuda.require(plan.indices, "indices", torch.int32, dev, plan.nnz)
-    _cuda.require(plan.indptr, "indptr", torch.int32, dev, plan.m + 1)
-    _cuda.require(plan.tile_row, "tile_row", torch.int32, dev,
-                  _cuda.spmv_tiles(plan.m, plan.nnz) + 1)
-    y = torch.empty(plan.m, dtype=dtype, device=dev)
-    if plan.ntiles:
-        _cuda.spmv_merge_planned(plan.indptr, plan.tile_row, plan.indices,
-                                 plan.values, x, y, add, mul)
-        launches[counter] += 1
-    return y
+    with CFG.timed(f"kernels.{counter}", dev):
+        if not plan.values.is_cuda:
+            if plan.values.dtype != dtype or x.dtype != dtype:
+                raise TypeError(
+                    f"planned SpMV: expected {dtype} values and x")
+            return spmv_planned_plain(x, plan, add, mul)
+        _cuda.require(x, "x", dtype, dev, plan.n)
+        _cuda.require(plan.values, "values", dtype, dev, plan.nnz)
+        _cuda.require(plan.indices, "indices", torch.int32, dev, plan.nnz)
+        _cuda.require(plan.indptr, "indptr", torch.int32, dev, plan.m + 1)
+        _cuda.require(plan.tile_row, "tile_row", torch.int32, dev,
+                      _cuda.spmv_tiles(plan.m, plan.nnz) + 1)
+        y = torch.empty(plan.m, dtype=dtype, device=dev)
+        if plan.ntiles:
+            _cuda.spmv_merge_planned(plan.indptr, plan.tile_row,
+                                     plan.indices, plan.values, x, y, add,
+                                     mul)
+            launches[counter] += 1
+        return y
 
 
 def spmv_route(x, plan: SpmvRoutePlan) -> torch.Tensor:

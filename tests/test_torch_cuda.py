@@ -2,7 +2,8 @@
 gather-permute K9 at every payload width) against their plain torch
 versions, the fast SpGEMM tier on K5/K6 against scipy, the union merge,
 wait(), the CSR <-> CSC reorient and the distributed tier (a world-size-1
-NCCL group) against the CPU's results, on a card.
+NCCL group) against the CPU's results, and the ``host_syncs`` counter
+against torch's own report of synchronising calls, on a card.
 
 Imports no JAX, so it runs where only torch is installed:
 
@@ -426,6 +427,45 @@ def test_permute_rows_refuses_bad_operands(cuda_device):
     with pytest.raises(ValueError):                 # the payload elsewhere
         STR.permute_rows(x.cpu(), perm)
     assert STR.permute_rows(x, perm[:0]).shape == (0,)
+
+
+
+@pytest.mark.parametrize("algo", ["sssp", "pagerank"])
+def test_host_syncs_count_every_sync_on_card(cuda_device, algo):
+    """One fused call with a plan at RMAT-12: the ``host_syncs`` counter
+    equals the synchronising CUDA calls torch reports
+    (``set_sync_debug_mode("warn")``): the loop's stop tests, the plan's
+    indptr fetch and its tiling's upload, and nothing else."""
+    import warnings
+
+    from graphblas_tpu_torch import algorithms as AL
+    rng = np.random.default_rng(14)
+    r, c, n = GT.rmat_edges(12, 8, rng)
+    w = (rng.random(r.size) + 0.05).astype(np.float32)
+    A = gt.Matrix.from_coo(r, c, w, (n, n), dup="min", device=cuda_device)
+
+    def call():
+        if algo == "sssp":
+            return AL.sssp(A, 3, optimize=True)
+        return AL.pagerank_fused(A, 0.85, 1e-6, 100, optimize=True)[0]
+
+    call()                                  # builds and loads the kernels
+    torch.cuda.synchronize()
+    gt.trace_reset()
+    gt.set_option("trace", True)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            call()
+        counted = gt.trace_counters()["host_syncs"]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        gt.set_option("trace", False)
+        gt.trace_reset()
+    syncs = [f"{x.filename}:{x.lineno}" for x in seen
+             if "synchroniz" in str(x.message)]
+    assert counted == len(syncs) and counted >= 3, (counted, syncs)
 
 
 @pytest.mark.parametrize("dtype", ["FP32", "FP64", "INT8", "BOOL", "UINT64",
