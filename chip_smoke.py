@@ -22,8 +22,11 @@ Phases, each printing one line (more for the per-graph phases):
      16-byte boundary (keys exact; values exact for int32, bool, min/max
      and K7, 1e-5*max|v| for fp32 plus), every call twice bitwise equal
      (K7 and K8 at 32768 launch here only: no path runs them), K9 on a
-     random permutation of 2^24 + 777 fp32 elements (exact), and two K2,
-     two K1 and two K3 min-plus calls at graph (b) bitwise equal;
+     random permutation of 2^24 + 777 fp32 elements (exact), two K2,
+     two K1 and two K3 min-plus calls at graph (b) bitwise equal, and KP
+     (the SpMV plan's tiling, through spmv_route.build_plan) bit for bit
+     against the host tiling _tile_rows at testing.TILING_EDGES and at
+     the skewed CSR above;
   4. SpMV main path at real size through the public API on two graphs —
      (a) bench.py's uniform graph (n = 2^20, degree 16, seed 0) and
      (b) RMAT scale 20, edge factor 16, seed 7 (bench_real.py's graph,
@@ -34,16 +37,20 @@ Phases, each printing one line (more for the per-graph phases):
      COL) (its row ids and values through one K9 launch): wall, one call
      traced (idle share, device time by kernel, K9's share), and K9 with
      both payloads against the former two library gathers;
-  5. launch counts: every SpMV kernel and K9 launched during phase 4's
-     checks (K9: the reorients of the CSC conversion, the fused PageRank,
-     BFS and SSSP and vxm);
+  5. launch counts: every SpMV kernel, K9 and KP launched during phase
+     4's checks (K9: the reorients of the CSC conversion, the fused
+     PageRank, BFS and SSSP and vxm; KP: each plan built);
   6. SpMV times: each kernel, its plain version and one torch.sparse CSR
      product (K1, K2, K4) at graphs (a) and (b) (CUDA events, median of
      20 after warm-up) beside the bound of its bytes, and K1's and K2's
      two passes (the merge-path kernel, the carry pass) apart, by their
      device time under torch.profiler; at graph (a) also K1's kernel with
      the columns redrawn in [0, 2^16) and [0, 2^13) (x in L2 only, x in
-     L1: what the x gather costs);
+     L1: what the x gather costs); KP at the benchmark's scale-24 row
+     pointers (urand and Kronecker degrees, made on the card) and at
+     RMAT-18, bit for bit against _tile_rows and timed beside its bound,
+     the host tiling and one torch.searchsorted (the kernels line's KP
+     entry is urand-24's);
   7. SpGEMM main path (the SELL tier) through gt.mxm, gt.select and
      triangle_count, with the sort-reduce launch counts set to 0 before
      and read after (in total and by C): (a) C = A*A on graph (a) (K5;
@@ -96,7 +103,7 @@ Phases, each printing one line (more for the per-graph phases):
      level up, the reached set scipy's), connected_components (scipy's
      weak components, least-vertex labels) and sssp_grb (Dijkstra); each
      step's wall cold and warm, one warm ewise_add under torch.profiler
-     with the device idle share, and the K1-K9 launches during the phase
+     with the device idle share, and the K1-K9 and KP launches during the phase
      (K9 through the reorients of gt.transpose and the GrB-tier
      algorithms; no other kernel lies on this path);
  15. the rest of the op layer and the operator sugar at graph (b),
@@ -113,7 +120,7 @@ Phases, each printing one line (more for the per-graph phases):
      values (build with a user dup, eWise, reduce), serialize /
      deserialize (none, zlib, gbz) and from_mtx (an RMAT-16 file); each
      step's wall cold and warm, one warm extract and one warm subassign
-     traced, the K1-K9 launches during the phase;
+     traced, the K1-K9 and KP launches during the phase;
  16. the distributed tier (graphblas_tpu_torch.parallel) on a
      world-size-1 NCCL group in this process: at graph (b) from_matrix,
      dist_mxv plus-times fp32 before the shard has a plan (bitwise K2 on
@@ -125,7 +132,7 @@ Phases, each printing one line (more for the per-graph phases):
      (SELL, K5: cnnz 268,406,919, sampled rows exact); then
      dryrun_multichip(1), one spawned NCCL rank.  Walls cold and warm, a
      warm dist_mxv and dist_pagerank traced (idle share, NCCL kernels'
-     device time), the K1-K9 launches during the phase (K2-K5 > 0);
+     device time), the K1-K9 and KP launches during the phase (K2-K5 > 0);
  17. the last public surface: each demo of graphblas_tpu_torch.examples
      (bfs, context, gauss, kron, semiring, serialize) through its
      main(device="cuda") at its own sizes, against scipy/numpy; at graph
@@ -140,7 +147,7 @@ Phases, each printing one line (more for the per-graph phases):
      (59,049 vertices, 9,765,625 entries, exact against scipy.sparse.kron);
      gauss_demo's struct semiring through mxm at uniform n = 2^16,
      degree 8 (exact against scipy's complex128 product).  Each step's
-     wall cold and warm and the K1-K9 launches of its cold call.
+     wall cold and warm and the K1-K9 and KP launches of its cold call.
 The two lines before the last are the card (nvidia-smi) and one JSON
 object describing the kernels of the main paths (K7 and K8 at 32768, which
 no path runs, print their checks and times in phases 3 and 12 only); the
@@ -202,6 +209,9 @@ KERNELS = {   # key: (name, source, TPU kernel replaced)
            "row ids + values; global_permute, tile_permute, "
            "sublane_permute)", PERMUTE_SRC,
            "graphblas_tpu/kernels/static_route.py:580"),
+    "KP": ("spmv_partition_kernel (the SpMV plan's merge-path tiling, "
+           "spmv_route.build_plan)", SPMV_SRC,
+           "none: the plan's host tiling, spmv_route._tile_rows"),
 }
 BIG_C = 32768
 SMALL_CAPS = (128, 512, 2048, 8192)
@@ -644,6 +654,85 @@ def phase_times(label, st, card, errs):
     return out
 
 
+def scale24_indptrs():
+    """The row pointers of the benchmark's scale-24 graphs as the card's
+    plan build sees them, made on the card: 2^24 vertices, 16 * 2^24
+    edges counted at both ends (undirected), duplicates and self loops
+    kept.  "urand-24": both ends uniform (GAP's urand); "kron-24": each
+    end's vertex bit set with probability 0.24 a level (the Graph500
+    initiator's c + d = b + d), then the vertices permuted."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    n, ends = 1 << 24, 2 * 16 << 24
+
+    def indptr(v):
+        deg = torch.bincount(v, minlength=n)
+        return torch.cat([deg.new_zeros(1), deg.cumsum(0)]).int()
+    out = {"urand-24": indptr(torch.randint(n, (ends,), generator=gen,
+                                            device="cuda"))}
+    v = torch.zeros(ends, dtype=torch.int64, device="cuda")
+    for level in range(24):
+        v |= (torch.rand(ends, generator=gen, device="cuda") < 0.24
+              ).long() << level
+    out["kron-24"] = indptr(torch.randperm(n, generator=gen,
+                                           device="cuda")[v])
+    return out
+
+
+def partition_times(card, errs):
+    """Phase 6: KP at the benchmark's scale-24 shapes and at RMAT-18
+    (testing.tiling_indptr), each checked bit for bit against
+    ``_tile_rows`` through ``build_plan``, then timed: the kernel (CUDA
+    events, 20 launches an event pair, median of 20), the host tiling it
+    replaced (``_tile_rows`` on the fetched indptr, host clock, median of
+    3), one torch.searchsorted of the row ends (the same answer from a
+    library call) and the bound of its bytes (a 32-byte sector of indptr
+    read and 4 B written a boundary).  Returns the kernels line's entry,
+    at urand-24."""
+    import torch
+    from graphblas_tpu_torch import testing as GT
+    from graphblas_tpu_torch.kernels import _cuda
+    from graphblas_tpu_torch.kernels import spmv_route as SPR
+    tile = _cuda.SPMV_TILE
+    shapes = scale24_indptrs()
+    shapes["rmat-18"] = torch.from_numpy(GT.tiling_indptr(
+        "rmat18", tile, np.random.default_rng(18))).cuda()
+    out, lines = {}, []
+    for label, ipt in shapes.items():
+        ip = ipt.cpu().numpy()
+        m, nnz = ip.size - 1, int(ip[-1])
+        errs["KP"] = max(errs["KP"], partition_mismatch(ipt, ip))
+        assert errs["KP"] == 0, ("KP", label, errs["KP"])
+        tiles = _cuda.spmv_tiles(m, nnz)
+        tr = torch.empty(tiles + 1, dtype=torch.int32, device="cuda")
+        steps = torch.arange(tiles + 1, device="cuda").mul_(tile)
+        steps.clamp_(max=m + nnz)
+
+        def kern():
+            for _ in range(20):
+                _cuda.spmv_partition(ipt, tr, nnz)
+
+        def lib():
+            ends = ipt[1:].long() + torch.arange(m, device="cuda")
+            return torch.searchsorted(ends, steps)
+        kern()
+        want = torch.from_numpy(SPR._tile_rows(ip)).cuda()
+        assert torch.equal(tr, want) and torch.equal(lib().int(), want), \
+            ("KP", label)
+        t = time_ms(kern) / 20
+        t_lib = time_ms(lib)
+        t_host = float(np.median([timed(lambda: SPR._tile_rows(ip))[1]
+                                  for _ in range(3)])) * 1e3
+        b, by = bound((tiles + 1) * (32 + 4), 0)
+        out[label] = (t, t_host, t_lib, b, by)
+        lines.append(f"{label} m={m} nnz={nnz} boundaries={tiles + 1}: "
+                     f"{t:.5f} ms, host _tile_rows {t_host:.3f} ms, "
+                     f"torch.searchsorted {t_lib:.4f} ms, bound {b:.6f} ms")
+    print(f"[6 partition] {card} | {KERNELS['KP'][0]}, bitwise equal to "
+          "_tile_rows | " + " | ".join(lines), flush=True)
+    return out["urand-24"]
+
+
 def gather_wall(st, card):
     """Phase 6 at graph (a): what binds the SpMV kernels.  K1's merge-path
     kernel (device time) on graph (a)'s rows and values, with its columns
@@ -742,6 +831,40 @@ def phase_permute_kernel(errs):
     assert torch.equal(got, STR.permute_plain(x, plan.perm)), "K9"
     errs["K9"] = max(errs["K9"], 0.0)
     return n
+
+
+def phase_partition_kernel(errs):
+    """Phase 3e: KP through ``spmv_route.build_plan`` on the card against
+    ``_tile_rows`` (bit for bit) at the tiling's edges
+    (``testing.TILING_EDGES``) and at phase 3's skewed CSR.  Returns the
+    cases."""
+    import torch
+    from graphblas_tpu_torch import testing as GT
+    from graphblas_tpu_torch.kernels import _cuda
+    rng = np.random.default_rng(16)
+    ips = {c: GT.tiling_indptr(c, _cuda.SPMV_TILE, rng)
+           for c in GT.TILING_EDGES}
+    ips["skewed"] = small_csr(rng, np.float32).indptr.astype(np.int32)
+    for case, ip in ips.items():
+        errs["KP"] = max(errs["KP"], partition_mismatch(
+            torch.from_numpy(ip).cuda(), ip))
+    assert errs["KP"] == 0, ("KP", errs["KP"])
+    return len(ips)
+
+
+def partition_mismatch(ipt, ip):
+    """Entries of the card's tiling of ``ipt`` (a build_plan's tile_row)
+    that differ from ``_tile_rows(ip)``, its host copy."""
+    import torch
+    from graphblas_tpu_torch.kernels import spmv_route as SPR
+    nnz = int(ip[-1])
+    p = SPR.build_plan(ipt, torch.empty(nnz, dtype=torch.int32,
+                                        device="cuda"),
+                       torch.empty(nnz, device="cuda"), (ip.size - 1, 1))
+    got = p.tile_row.cpu().numpy()
+    want = SPR._tile_rows(ip)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.count_nonzero(got != want))
 
 
 def phase_repeat(S):
@@ -1329,14 +1452,15 @@ def phase_trace(card):
 # ---------------------------------------------------------------------------
 
 def kernel_launches():
-    """K1-K9 launch counts as the wrappers keep them."""
+    """K1-K9 and KP launch counts as the wrappers keep them."""
     from graphblas_tpu_torch.kernels import sortreduce as SRD
     from graphblas_tpu_torch.kernels import spmv_onehot as OH
     from graphblas_tpu_torch.kernels import spmv_route as SPR
     from graphblas_tpu_torch.kernels import static_route as STR
     out = {"K1": SPR.launches["spmv_route"], "K2": OH.launches,
            "K3": SPR.launches["spmv_route_monoid"],
-           "K4": SPR.launches["spmv_route_ds"], "K9": STR.launches}
+           "K4": SPR.launches["spmv_route_ds"], "K9": STR.launches,
+           "KP": SPR.launches["spmv_partition"]}
     out.update({k: SRD.launches[n] for k, n in SR_WRAPPERS.items()})
     return dict(sorted(out.items()))
 
@@ -1398,7 +1522,7 @@ def ewise_path(S, card):
     two vectors of 2^24, 100,000 set_element and 20,000 remove_element
     calls and wait(), and bfs_parents, connected_components and sssp_grb,
     each held against scipy/numpy on the host (exact); walls cold and
-    warm, one warm ewise_add traced, K1-K9 launches during the phase."""
+    warm, one warm ewise_add traced, K1-K9 and KP launches during the phase."""
     import scipy.sparse as sps
     import scipy.sparse.csgraph as csg
     import torch
@@ -1589,7 +1713,7 @@ def ewise_path(S, card):
           + " ".join(f"{k}={v:.3f}" for k, v in walls.items())
           + f" | warm ewise_add traced: wall {wall_p:.4f} s, device busy "
           f"{busy:.4f} s (idle {1 - busy / wall_p:.1%}); top kernels {top_k}"
-          f" | K1-K9 launches during the phase: {launches} | phase "
+          f" | K1-K9 and KP launches during the phase: {launches} | phase "
           f"{time.perf_counter() - t_phase:.1f} s, by part (checks and host "
           f"references included): " + " ".join(
               f"{k}={v:.1f}" for k, v in parts.items()), flush=True)
@@ -1737,7 +1861,7 @@ def op_layer_path(S, card):
     call each); from_mtx of an RMAT-16 file that scipy.io.mmwrite writes
     (RMAT-16, not 20: mmwrite of 16 M entries takes minutes).  Each
     step's wall cold and warm, one warm extract and one warm subassign
-    traced, K1-K9 launches during the phase."""
+    traced, K1-K9 and KP launches during the phase."""
     import os
     import tempfile
 
@@ -2038,7 +2162,7 @@ def op_layer_path(S, card):
               f"{k} wall {w_:.4f} s, device busy {b_:.4f} s (idle "
               f"{1 - b_ / w_:.1%}), top {t_}" for k, (w_, b_, t_) in
               tr.items())
-          + f" | K1-K9 launches during the phase: {launches} | phase "
+          + f" | K1-K9 and KP launches during the phase: {launches} | phase "
           f"{time.perf_counter() - t_phase:.1f} s, by part (checks and "
           f"host references included): " + " ".join(
               f"{k}={v:.1f}" for k, v in parts.items()), flush=True)
@@ -2097,7 +2221,7 @@ def dist_path(S, card):
     268,406,919, 4096 sampled rows exact, fp64 checksum).  Then
     dryrun_multichip(1): one spawned NCCL rank.  Each step's wall cold
     and warm, one warm dist_pagerank and one warm dist_mxv traced (idle
-    share, NCCL kernels' device time), the K1-K9 launches during the
+    share, NCCL kernels' device time), the K1-K9 and KP launches during the
     phase (K2, K3, K4 and K5 each > 0)."""
     import os
     import shutil
@@ -2250,7 +2374,7 @@ def dist_path(S, card):
                   "profiler returned no device event), ")
               + f"NCCL kernels {nc[0]:.4f} ms x{nc[1]:g}, top {t_}"
               for k, (w_, b_, nc, t_) in tr.items())
-          + f" | K1-K9 launches during the phase: {launches} | phase "
+          + f" | K1-K9 and KP launches during the phase: {launches} | phase "
           f"{time.perf_counter() - t_phase:.1f} s, by part (checks and "
           f"host references included): " + " ".join(
               f"{k}={v:.1f}" for k, v in parts.items()), flush=True)
@@ -2341,7 +2465,8 @@ def surface_path(S, card):
     against a chain of scipy.sparse.kron; gauss_demo's semiring (a
     struct type, user add and mult) through mxm on a uniform graph of
     n = 2^16, degree 8, exact against scipy's complex128 product.  Each
-    step's wall cold and warm, and the K1-K9 launches of its cold call."""
+    step's wall cold and warm, and the K1-K9 and KP launches of its cold
+    call."""
     import scipy.sparse as sps
     import torch
 
@@ -2497,7 +2622,7 @@ def surface_path(S, card):
           f"<= 1 ulp) | " + " ".join(f"{k}={v}" for k, v in info.items())
           + " | walls s (cold, warm): " + " ".join(
               f"{k}=({c:.4f}, {w:.4f})" for k, (c, w) in walls.items())
-          + " | K1-K9 launched by each step's cold call: " + "; ".join(
+          + " | K1-K9 and KP launched by each step's cold call: " + "; ".join(
               f"{k}: {v or 'none'}" for k, v in launched.items())
           + f" | demos {t_demos:.1f} s, phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -2548,6 +2673,7 @@ def main():
     n_sr, sr_launches = phase_sr_kernels(errs)
     n_perm = phase_permute_kernel(errs)
     n_tiles, n_cuts = phase_repeat(graphs["b (RMAT-20 x16)"])
+    n_part = phase_partition_kernel(errs)
     print(f"[3 kernels] {n_cmp} SpMV instantiations match their plain "
           f"versions (min/max exact, fp32 plus <= {FP32_TOL}*max|y|, fp64 "
           f"<= {FP64_TOL}*max|y|) at {shape[0]}x{shape[1]}, max row "
@@ -2561,6 +2687,7 @@ def main():
           + f"); K9 exact on {n_perm} "
           f"elements; K2, K1 and K3 min-plus bitwise repeatable at graph "
           f"(b) ({n_tiles} tiles, {n_cuts} of them start inside a row); "
+          f"KP bitwise equal to _tile_rows on {n_part} CSRs; "
           f"max|err| " + ", ".join(
               f"{k}={v:.3e}" for k, v in errs.items())
           + f"; {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2575,7 +2702,8 @@ def main():
     counts = {"K2": OH.launches, "K1": SPR.launches["spmv_route"],
               "K3": SPR.launches["spmv_route_monoid"],
               "K4": SPR.launches["spmv_route_ds"],
-              "K9": sum(st["k9"] for st in states.values())}
+              "K9": sum(st["k9"] for st in states.values()),
+              "KP": SPR.launches["spmv_partition"]}
     print("[5 launches] " + ", ".join(
         f"{KERNELS[k][0]}={v}" for k, v in counts.items()), flush=True)
     assert all(v > 0 for v in counts.values()), counts
@@ -2584,6 +2712,7 @@ def main():
              for label, st in states.items()}
     gather_wall(states[next(iter(states))], card)
     ta = times[next(iter(times))]
+    ta["KP"] = partition_times(card, errs)
     graph_b = graphs["b (RMAT-20 x16)"]      # phase 14's graph
     del states, times, graphs
     # 7. SpGEMM main path, sort-reduce launch counts

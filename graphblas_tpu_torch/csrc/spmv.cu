@@ -17,6 +17,13 @@
 //                      (K4, <double, plus, times>).
 //   spmv_carry<T, ADD> the second pass of both: adds the partials of the
 //                      rows cut between tiles to their rows, in tile order.
+//   spmv_partition     the plan's tiling (tile_row): K2's path search, one
+//                      warp a tile boundary.  Replaces no TPU kernel: it
+//                      moves SpmvRoutePlan's build from the host (indptr
+//                      read back, numpy searchsorted, upload) to the card.
+//                      It reads about one 32-byte sector of indptr per
+//                      probe, a few rounds of 32 probes a boundary, so the
+//                      dependent loads' latency, not bytes, bounds it.
 //
 // What bounds them: SpMV does 2 operations per nonzero and must move 8 B
 // per nonzero from device memory (4 B column index + 4 B value; 12 B in
@@ -57,6 +64,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cassert>
 #include <cstdint>
 
 namespace {
@@ -433,6 +441,26 @@ int64_t tiles_of(int64_t m, int64_t nnz) {
   return (m + nnz + kTile - 1) / kTile;
 }
 
+// The plan's tiling: tile_row[b] = the rows ended before step
+// min(b * kTile, m + nnz), one warp per boundary b = 0 .. tiles (the last
+// is m), by the search K2 runs in-kernel.  The last warp also holds the
+// CSR to indptr[m] == nnz (the host never reads indptr): a mismatch is a
+// device-side assert, which ends the CUDA context before any SpMV on the
+// same stream can walk past row m, as torch's own index checks do.
+__global__ void __launch_bounds__(kThreads)
+spmv_partition_kernel(const int32_t* __restrict__ indptr,
+                      int32_t* __restrict__ tile_row, int64_t m, int64_t nnz,
+                      int64_t tiles) {
+  const int64_t b = int64_t(blockIdx.x) * kWarps + threadIdx.x / kWarp;
+  if (b > tiles) return;                          // the whole warp
+  const int64_t d = b * kTile < m + nnz ? b * kTile : m + nnz;
+  const int64_t r = warp_path_search(indptr, d, m, nnz);
+  if (threadIdx.x % kWarp == 0) {
+    if (b == tiles) assert(int64_t(indptr[m]) == nnz);
+    tile_row[b] = int32_t(r);
+  }
+}
+
 }  // namespace
 
 // K2: y = A x (plus-times fp32) over CSR arrays, both passes.
@@ -479,6 +507,22 @@ extern "C" int gb_spmv_merge_planned(int64_t dtype, int64_t add, int64_t mul,
     ok = true;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The merge-path tiling of an SpmvRoutePlan: tile_row (ceil((m + nnz) /
+// tile) + 1 entries) from indptr (m + 1 entries, indptr[m] = nnz, else a
+// device-side assert), on the card, so the plan's build reads nothing back
+// to the host.
+extern "C" int gb_spmv_partition(const void* indptr, void* tile_row,
+                                 int64_t m, int64_t nnz, int64_t tile,
+                                 void* stream) {
+  if (tile != kTile) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles = tiles_of(m, nnz);
+  spmv_partition_kernel<<<static_cast<unsigned>(tiles / kWarps + 1),
+                          kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(indptr), static_cast<int32_t*>(tile_row),
+      m, nnz, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -111,6 +111,8 @@ def _bind_spmv(so) -> None:
     so.gb_spmv_merge_planned.argtypes = [I, I, I, P, P, P, P, P, P, P, P,
                                          I, I, I, P]
     so.gb_spmv_merge_planned.restype = ctypes.c_int
+    so.gb_spmv_partition.argtypes = [P, P, I, I, I, P]
+    so.gb_spmv_partition.restype = ctypes.c_int
 
 
 def _bind_sortreduce(so) -> None:
@@ -221,6 +223,16 @@ def spmv_merge_planned(indptr, tile_row, indices, values, x, y, add: str,
             carry_row.data_ptr(), carry_val.data_ptr(), y.numel(),
             indices.numel(), SPMV_TILE, _stream(y.device))
     _check(err, f"spmv_merge_planned<{values.dtype}, {add}, {mul}>")
+
+
+def spmv_partition(indptr, tile_row, nnz: int) -> None:
+    """tile_row = the merge-path tiling of an (indptr.numel() - 1)-row
+    CSR with nnz nonzeros (``spmv_route._tile_rows``), on one card."""
+    with torch.cuda.device(indptr.device):
+        err = lib("spmv").gb_spmv_partition(
+            indptr.data_ptr(), tile_row.data_ptr(), indptr.numel() - 1, nnz,
+            SPMV_TILE, _stream(indptr.device))
+    _check(err, "spmv_partition")
 
 
 # sortreduce.cu: value plane codes and monoid op codes (see the source)

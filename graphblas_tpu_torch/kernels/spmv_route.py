@@ -26,10 +26,14 @@ binds it is the x gather: one random 32-byte L2 request per nonzero.
 thread in flight at once are what the design does about that.
 
 Each entry point launches the kernels for CUDA tensors and runs the plain
-torch version, which walks the same tiles, for CPU tensors.
+torch version, which walks the same tiles, for CPU tensors.  So does the
+plan's build: on a card its tiling is one more kernel of ``csrc/spmv.cu``
+(``spmv_partition``, K2's path search a tile boundary), and the host
+waits for nothing.
 
 Plans are cached per matrix with identity-checked keys, and save/load to
-an ``.npz`` of the port's own format.  Plans written by the JAX package
+an ``.npz`` of the port's own format, matched by a digest of the indptr
+that only saving and matching compute.  Plans written by the JAX package
 (a TPU route layout) and by earlier versions of the port are refused.
 """
 
@@ -53,20 +57,22 @@ PLAN_FORMAT = "graphblas_tpu_torch.spmv_plan.v2"
 MONOID_IDENTITY = {"plus": 0.0, "min": math.inf, "max": -math.inf}
 MULTIPLIES = ("times", "plus", "first", "second", "pair")
 
-# launches of the CUDA kernel per entry point (CPU calls are uncounted)
-launches = {"spmv_route": 0, "spmv_route_monoid": 0, "spmv_route_ds": 0}
+# launches of the CUDA kernels per entry point, and of the plan's tiling
+# (``spmv_partition``; CPU calls are uncounted)
+launches = {"spmv_route": 0, "spmv_route_monoid": 0, "spmv_route_ds": 0,
+            "spmv_partition": 0}
 
 
-def _fetch(indptr) -> np.ndarray:
-    """indptr on the host as int64 (a device array waits for the work
-    queued before it)."""
-    if isinstance(indptr, torch.Tensor):
-        indptr = CFG.blocking_copy(indptr.detach(), "cpu").numpy()
-    return np.ascontiguousarray(indptr, np.int64)
-
-
-def _digest(ip: np.ndarray) -> str:
-    return hashlib.sha256(ip.tobytes()).hexdigest()
+def _digest(indptr) -> str:
+    """sha256 of indptr as int64, which a saved plan is matched by.
+    Spans ``spmv_plan.fetch`` (indptr to the host as int64; a device
+    array waits for the work queued before it) and ``.digest``."""
+    with CFG.timed("spmv_plan.fetch"):
+        if isinstance(indptr, torch.Tensor):
+            indptr = CFG.blocking_copy(indptr.detach(), "cpu").numpy()
+        ip = np.ascontiguousarray(indptr, np.int64)
+    with CFG.timed("spmv_plan.digest"):
+        return hashlib.sha256(ip.tobytes()).hexdigest()
 
 
 def _host(t):
@@ -81,16 +87,29 @@ class SpmvRoutePlan:
     With tile = ``_cuda.SPMV_TILE``, tile b covers steps [b * tile,
     min((b + 1) * tile, m + nnz)) of the walk; it starts after tile_row[b]
     row ends and b * tile - tile_row[b] nonzeros, and ends the rows
-    [tile_row[b], tile_row[b + 1])."""
+    [tile_row[b], tile_row[b + 1]).  ``indptr`` is the array the plan was
+    built from or bound to (a build from numpy keeps it too, unbound);
+    ``digest`` its sha256 once ``indptr_digest`` has been read."""
 
     m: int
     n: int
     nnz: int
     tile_row: torch.Tensor        # (tiles + 1,) int32, tile_row[-1] = m
-    indptr_digest: str
+    digest: str | None = None
     indptr: torch.Tensor | None = None
     indices: torch.Tensor | None = None
     values: torch.Tensor | None = None
+
+    @property
+    def indptr_digest(self) -> str:
+        """sha256 of the tiled indptr as int64, computed from ``indptr``
+        on first need and kept: only saving and matching plans read it."""
+        if self.digest is None:
+            if self.indptr is None:
+                raise E.InvalidValue("route plan has no digest and no "
+                                     "indptr to take one from")
+            self.digest = _digest(self.indptr)
+        return self.digest
 
     @property
     def ntiles(self) -> int:
@@ -101,10 +120,12 @@ class SpmvRoutePlan:
         return self.tile_row.device
 
     def matches(self, indptr, shape) -> bool:
-        """True when this plan tiles a matrix with this indptr."""
+        """True when this plan tiles a matrix with this indptr: the array
+        it was built from or bound to, or one with its digest."""
         return (tuple(shape) == (self.m, self.n)
                 and int(indptr.shape[0]) == self.m + 1
-                and _digest(_fetch(indptr)) == self.indptr_digest)
+                and (indptr is self.indptr
+                     or _digest(indptr) == self.indptr_digest))
 
     def bind(self, indptr, indices, values) -> "SpmvRoutePlan":
         """The plan attached to a matrix's CSR arrays (moved to their
@@ -121,7 +142,7 @@ class SpmvRoutePlan:
 def _tile_rows(indptr) -> np.ndarray:
     """The row each merge-path tile starts in, and m last: after d steps
     the walk has ended the rows whose end step (indptr[r + 1] + r) comes
-    before d."""
+    before d.  The plain version of ``_cuda.spmv_partition``."""
     ip = np.ascontiguousarray(indptr, np.int64)
     m = ip.size - 1
     ends = ip[1:] + np.arange(m)
@@ -131,27 +152,37 @@ def _tile_rows(indptr) -> np.ndarray:
 
 @CFG.timed("spmv_plan.build")
 def build_plan(indptr, indices, values, shape) -> SpmvRoutePlan:
-    """Build the plan for a CSR matrix (host numpy work; the tiling lands
-    on the arrays' device, bound to them).  Spans: ``spmv_plan.build``
-    around ``.fetch`` (indptr to the host), ``.digest`` (its sha256),
-    ``.tile`` (the tiling) and ``.upload`` (the tiling to the device)."""
+    """Build the plan for a CSR matrix on indptr's device, bound to the
+    arrays (unbound for numpy).  On a card the tiling is one
+    ``spmv_partition`` launch over nnz = ``indices.numel()`` (the kernels
+    take no other): nothing is read back to the host, and the kernel
+    holds indptr[m] to nnz by a device-side assert, which surfaces at the
+    next sync as torch's own do.  Elsewhere it is
+    ``_tile_rows`` over indptr's numpy view.  No digest is taken
+    (``indptr_digest``).  Span ``spmv_plan.build`` around ``.tile``;
+    counters ``spmv_plan.builds`` and ``.card_tilings``."""
     CFG.count("spmv_plan.builds")
     m, n = int(shape[0]), int(shape[1])
-    with CFG.timed("spmv_plan.fetch"):
-        ip = _fetch(indptr)
-    with CFG.timed("spmv_plan.digest"):
-        digest = _digest(ip)
-    with CFG.timed("spmv_plan.tile"):
-        tiles = _tile_rows(ip)
-    dev = values.device if isinstance(values, torch.Tensor) else "cpu"
-    with CFG.timed("spmv_plan.upload"):
-        tile_row = CFG.blocking_copy(tiles, dev)
-    plan = SpmvRoutePlan(m=m, n=n, nnz=int(ip[-1]), tile_row=tile_row,
-                         indptr_digest=digest)
-    CFG.burble("route plan: m=%d nnz=%d tiles=%d", m, plan.nnz, plan.ntiles)
+    if isinstance(indptr, torch.Tensor) and indptr.is_cuda:
+        dev = indptr.device
+        nnz = int(indices.numel())
+        _cuda.require(indptr, "indptr", torch.int32, dev, m + 1)
+        tile_row = torch.empty(_cuda.spmv_tiles(m, nnz) + 1,
+                               dtype=torch.int32, device=dev)
+        with CFG.timed("spmv_plan.tile", dev):
+            _cuda.spmv_partition(indptr, tile_row, nnz)
+        launches["spmv_partition"] += 1
+        CFG.count("spmv_plan.card_tilings")
+    else:
+        ip = indptr.detach().numpy() if isinstance(indptr, torch.Tensor) \
+            else np.asarray(indptr)
+        nnz = int(ip[-1])
+        with CFG.timed("spmv_plan.tile"):
+            tile_row = torch.from_numpy(_tile_rows(ip))
+    plan = SpmvRoutePlan(m=m, n=n, nnz=nnz, tile_row=tile_row, indptr=indptr)
+    CFG.burble("route plan: m=%d nnz=%d tiles=%d", m, nnz, plan.ntiles)
     if isinstance(values, torch.Tensor):
-        plan = dataclasses.replace(plan, indptr=indptr, indices=indices,
-                                   values=values)
+        plan.indices, plan.values = indices, values
     return plan
 
 
@@ -232,7 +263,7 @@ def load_plan(path) -> SpmvRoutePlan:
                 f"{_cuda.SPMV_TILE}: rebuild it")
         return SpmvRoutePlan(
             m=m, n=n, nnz=nnz, tile_row=torch.from_numpy(z["tile_row"].copy()),
-            indptr_digest=str(z["indptr_digest"]))
+            digest=str(z["indptr_digest"]))
 
 
 # ---------------------------------------------------------------------------

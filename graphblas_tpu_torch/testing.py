@@ -1,7 +1,8 @@
 """Inputs and comparisons for holding the sort-reduce kernels (K5-K8,
 kernels/sortreduce.py) against their plain versions, operands for the
 fast SpGEMM tier's full-row edge case, misaligned copies of the SpMV
-kernels' operands, the RMAT graph generator of the benchmarks,
+kernels' operands, the RMAT graph generator of the benchmarks, the
+CSR pointer arrays at the SpMV plan tiling's edges,
 pending set/remove events with their host reference, and the payloads
 of every width that K9 (kernels/static_route.py) moves.  Used by
 chip_smoke.py and the tests, among them tests/test_torch_cuda.py;
@@ -38,6 +39,30 @@ def rmat_edges(scale, edge_factor, rng, a=0.57, b=0.19, c=0.19):
         cols |= (right | both).astype(np.int64) << lvl
     perm = rng.permutation(n)
     return perm[rows], perm[cols], n
+
+
+# where the merge-path tiling of an SpMV plan (kernels/spmv_route.py) has
+# its edges; "rmat<scale>" is an RMAT graph of edge factor 16
+TILING_EDGES = ("m1", "nnz0", "all_rows_empty", "row_over_3_tiles",
+                "m_plus_nnz_4_tiles", "rmat10")
+
+
+def tiling_indptr(case: str, tile: int, rng) -> np.ndarray:
+    """The int32 CSR pointer array of one ``TILING_EDGES`` case (or
+    "rmat<scale>"): one row of two tiles and more; no rows and no
+    nonzeros; 5000 empty rows; a row over three tiles among short ones;
+    m + nnz exactly four tiles; an RMAT graph's row lengths (duplicate
+    edges kept)."""
+    if case.startswith("rmat"):
+        rows, _, n = rmat_edges(int(case[4:]), 16, rng)
+        deg = np.bincount(rows, minlength=n)
+    else:
+        deg = {"m1": [2 * tile + 7], "nnz0": [], "all_rows_empty": [0] * 5000,
+               "row_over_3_tiles": [3, 0, 3 * tile + 100, 5, 0, 2],
+               "m_plus_nnz_4_tiles": [4 * tile - 100 - 99 * 80] + [80] * 99,
+               }[case]
+    return np.concatenate([[0], np.cumsum(deg, dtype=np.int64)]).astype(
+        np.int32)
 
 
 def _coords(rng, shape, k):

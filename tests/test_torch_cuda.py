@@ -14,6 +14,11 @@ Every test is marked ``cuda`` and skips where torch sees no card (a CUDA
 kernel has no CPU mode; the torch ops on unsigned dtypes differ too)."""
 
 import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -150,6 +155,70 @@ def test_planned_matches_plain(cuda_device, add, mul):
     torch.cuda.synchronize()
     want = SPR.spmv_planned_plain(x, p, add, mul)
     _check(got, want, add, 1e-12 if dt == np.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("case", GT.TILING_EDGES + ("rmat18",))
+def test_partition_kernel_matches_tile_rows(cuda_device, case):
+    """A plan built from CUDA tensors tiles on the card: ``spmv_partition``
+    gives ``_tile_rows``'s bits, in one launch, with no host sync (torch's
+    sync report raises on one) and no digest."""
+    ip = GT.tiling_indptr(case, TILE, np.random.default_rng(15))
+    m, nnz = ip.size - 1, int(ip[-1])
+    t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa
+    ipt, ix = t(ip), t(np.zeros(nnz, np.int32))
+    v = t(np.ones(nnz, np.float32))
+    SPR.build_plan(ipt, ix, v, (m, 7))        # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = SPR.launches["spmv_partition"]
+    gt.trace_reset()
+    gt.set_option("trace", True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p = SPR.build_plan(ipt, ix, v, (m, 7))
+        c = gt.trace_counters()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        gt.set_option("trace", False)
+        gt.trace_reset()
+    assert SPR.launches["spmv_partition"] == before + 1
+    assert c.get("host_syncs", 0) == 0 and c["spmv_plan.card_tilings"] == 1
+    assert p.tile_row.device == ipt.device and p.digest is None
+    assert p.nnz == nnz and p.values is v
+    np.testing.assert_array_equal(p.tile_row.cpu().numpy(),
+                                  SPR._tile_rows(ip))
+
+
+# one good plan, then a CSR whose indptr[m] (5) is not indices.numel()
+# (4); the exit code says which sync raised
+_MALFORMED = textwrap.dedent("""
+    import sys
+    import torch
+    from graphblas_tpu_torch.kernels import spmv_route as SPR
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device="cuda")
+    ix, v = t([0, 1, 2, 3], torch.int32), t([1.0] * 4, torch.float32)
+    SPR.build_plan(t([0, 3, 4], torch.int32), ix, v, (2, 7))
+    torch.cuda.synchronize()
+    SPR.build_plan(t([0, 3, 5], torch.int32), ix, v, (2, 7))
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print("raised:", e)
+        sys.exit(3)
+    sys.exit(0)
+""")
+
+
+def test_partition_kernel_stops_a_malformed_csr(cuda_device):
+    """The card's build reads nothing back, so ``spmv_partition`` holds
+    indptr[m] to ``indices.numel()`` itself: a mismatch is a device-side
+    assert, raised at the next sync (in a process of its own: it ends the
+    CUDA context)."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    r = subprocess.run([sys.executable, "-c", _MALFORMED], cwd=root,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 3, (r.returncode, r.stdout, r.stderr)
+    assert "device-side assert" in r.stdout, r.stdout
 
 
 def test_wrappers_refuse_bad_operands(cuda_device):
@@ -434,8 +503,8 @@ def test_permute_rows_refuses_bad_operands(cuda_device):
 def test_host_syncs_count_every_sync_on_card(cuda_device, algo):
     """One fused call with a plan at RMAT-12: the ``host_syncs`` counter
     equals the synchronising CUDA calls torch reports
-    (``set_sync_debug_mode("warn")``): the loop's stop tests, the plan's
-    indptr fetch and its tiling's upload, and nothing else."""
+    (``set_sync_debug_mode("warn")``): the loop's stop tests, and nothing
+    else (the plan is built on the card)."""
     import warnings
 
     from graphblas_tpu_torch import algorithms as AL

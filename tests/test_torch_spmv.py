@@ -6,6 +6,7 @@ tests/test_torch_cuda.py holds the CUDA kernels against those plain
 versions on a card."""
 
 import dataclasses
+import hashlib
 import math
 
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ import torch
 
 import graphblas_tpu as gb
 import graphblas_tpu_torch as gt
+from graphblas_tpu_torch import testing as GT
 from graphblas_tpu.kernels import spmv_route as JSPR
 from graphblas_tpu.ops.mxm import spmv_arrays as j_spmv_arrays
 from graphblas_tpu_torch.core import errors as TE
@@ -190,7 +192,7 @@ def test_planned_plain_matches_unplanned(add, mul):
                                     mul=mul)
     _check(got.numpy(), _reference(S, x, add, mul), add, 1e-5)
     assert SPR.launches == {"spmv_route": 0, "spmv_route_monoid": 0,
-                            "spmv_route_ds": 0}
+                            "spmv_route_ds": 0, "spmv_partition": 0}
 
 
 def test_planned_fp64_matches_jax_xla(xla_path):
@@ -300,6 +302,74 @@ def test_plan_save_load_and_optimize(tmp_path):
     assert pc.matches(C.indptr, C.shape)
     with pytest.raises(TE.InvalidValue):
         p1.bind(C.indptr, C.indices, C.values)
+
+
+@pytest.mark.parametrize("src", ["tensor", "numpy"])
+@pytest.mark.parametrize("case", GT.TILING_EDGES)
+def test_build_plan_tiles_on_the_host_without_a_digest(case, src):
+    """A build from CPU tensors or numpy arrays tiles by ``_tile_rows``
+    (the plain version of the card's partition kernel), which counts the
+    row ends before each tile's first step; it takes no digest and makes
+    no host sync."""
+    ip = GT.tiling_indptr(case, TILE, np.random.default_rng(15))
+    m, nnz = ip.size - 1, int(ip[-1])
+    args = (ip, np.zeros(nnz, np.int32), np.ones(nnz, np.float32))
+    if src == "tensor":
+        args = tuple(torch.from_numpy(a) for a in args)
+    gt.trace_reset()
+    gt.set_option("trace", True)
+    try:
+        p = SPR.build_plan(*args, (m, 7))
+        c = gt.trace_counters()
+    finally:
+        gt.set_option("trace", False)
+        gt.trace_reset()
+    want = SPR._tile_rows(ip)
+    ends = ip[1:].astype(np.int64) + np.arange(m)
+    steps = np.minimum(np.arange(want.size) * TILE, m + nnz)
+    np.testing.assert_array_equal(want, (ends[None, :] < steps[:, None])
+                                  .sum(1))
+    assert p.tile_row.dtype == torch.int32
+    np.testing.assert_array_equal(p.tile_row.numpy(), want)
+    assert p.ntiles == -(-(m + nnz) // TILE) and p.nnz == nnz
+    assert p.digest is None and (p.values is None) == (src == "numpy")
+    assert c == {"spmv_plan.builds": 1}
+
+
+def test_built_plan_saves_loads_and_matches(tmp_path):
+    """The digest a built plan lacks is taken by ``save_plan``; the file
+    loads, matches the same indptr (another tensor of its bits), registers
+    and runs as the built plan does.  A plan file written in the v2
+    format by hand, its digest taken at build as before, still loads and
+    matches."""
+    rng = np.random.default_rng(16)
+    S = _skewed_csr(rng)
+    ip, ix, v = _csr_t(S)
+    x = torch.from_numpy(rng.standard_normal(S.shape[1]).astype(np.float32))
+    p = SPR.build_plan(ip, ix, v, S.shape)
+    assert p.digest is None
+    path = str(tmp_path / "plan.npz")
+    SPR.save_plan(p, path)
+    sha = hashlib.sha256(S.indptr.astype(np.int64).tobytes()).hexdigest()
+    assert p.digest == sha
+    q = SPR.load_plan(path)
+    assert q.values is None and q.nnz == p.nnz and q.digest == sha
+    assert torch.equal(q.tile_row, p.tile_row)
+    assert q.matches(ip.clone(), S.shape) and not q.matches(ip, (1, 1))
+    r = SPR.register_plan(ip, ix, v, S.shape, q)
+    assert r.values is v and SPR.plan_for(ip, ix, v, S.shape,
+                                          build=False) is r
+    assert torch.equal(SPR.spmv_route(x, r), SPR.spmv_route(x, p))
+    old = str(tmp_path / "old.npz")
+    np.savez(old, format=np.array("graphblas_tpu_torch.spmv_plan.v2"),
+             shape=np.array([*S.shape, S.nnz, TILE], np.int64),
+             tile_row=SPR._tile_rows(S.indptr),
+             indptr_digest=np.array(sha))
+    o = SPR.load_plan(old)
+    assert o.matches(ip, S.shape) and torch.equal(o.tile_row, p.tile_row)
+    bad = ip.clone()
+    bad[1] += 1
+    assert not o.matches(bad, S.shape)
 
 
 def test_load_plan_refuses_jax_plan(tmp_path):
