@@ -41,21 +41,33 @@ def mask_bits_at_keys(mask: Matrix, keys, veclen: int, orient: str,
                       desc: Descriptor):
     """Mask bool at each (sorted-key) position — the dot3-style mask
     lookup (reference: GB_masker phase1)."""
+    return mask_lookup(mask, veclen, orient, desc)(keys)
+
+
+def mask_lookup(mask: Matrix, veclen: int, orient: str, desc: Descriptor):
+    """``mask_bits_at_keys`` for many key arrays: a function of the keys,
+    a sparse mask's own sorted keys worked out once."""
     if mask.fmt in (BITMAP, FULL):
-        vec = (keys // veclen).long()
-        idx = (keys % veclen).long()
-        i, j = (vec, idx) if orient == ROW else (idx, vec)
         mv, mp = mask.to_dense_pair()
-        m = mp[i, j] if desc.mask_structure else \
-            (mp[i, j] & (T.bits(mv)[i, j] != 0))
-    else:
-        mk, mvals = _keys_of(mask.to_orient(orient))
+
+        def bits(keys):
+            vec = (keys // veclen).long()
+            idx = (keys % veclen).long()
+            i, j = (vec, idx) if orient == ROW else (idx, vec)
+            m = mp[i, j] if desc.mask_structure else \
+                (mp[i, j] & (T.bits(mv)[i, j] != 0))
+            return ~m if desc.mask_complement else m
+        return bits
+    mk, mvals = _keys_of(mask.to_orient(orient))
+
+    def bits(keys):
         found, pos = K.lookup_sorted(mk, keys)
         if desc.mask_structure or mvals.shape[0] == 0:
             m = found
         else:
             m = found & (T.bits(mvals)[pos] != 0)
-    return ~m if desc.mask_complement else m
+        return ~m if desc.mask_complement else m
+    return bits
 
 
 def _keys_of(a: Matrix):

@@ -47,7 +47,7 @@ from ..core.semiring import PLUS_TIMES, Semiring
 from ..core.types import cast
 from ..kernels import segment as K
 from ..kernels import spmv_onehot, spmv_route
-from .masker import mask_bits_at_keys, writeback
+from .masker import mask_bits_at_keys, mask_lookup, writeback
 from .transpose import logical_transpose, maybe_transpose
 
 _MATMUL_ADD = {"GrB_PLUS"}  # monoids whose dense path can ride matmul
@@ -579,7 +579,9 @@ def mxm_reduce_scalar(A, B, sr: Semiring, *, mask=None,
     # PAIR: run sums are exact small counts in any type
     int_exact = zt.is_integer or sr.mult.name == "GrB_ONEB"
     if (sr.add.op.name != "GrB_PLUS" or zt.is_bool or zt.is_complex
-            or _dense(A2) or _dense(B2) or not int_exact):
+            or _dense(A2) or _dense(B2) or not int_exact
+            or mask is not None and mask.fmt not in (SPARSE, HYPER)):
+        # the tiers apply a sparse mask only; mxm's writeback the others
         return None
     d2 = desc.with_(transpose0=False, transpose1=False)
     out = _spgemm_esc_impl(A2, B2, sr, zt, mask, d2, None,
@@ -601,7 +603,15 @@ def _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum,
     the cumulative flop array), prefilter by a sparse mask (the dot3
     analog), sort the int64 (i, j) keys and reduce each group under the
     add monoid.  The fused reduce (``reduce_scalar``) exists on SELL
-    only; elsewhere it returns None and the caller runs mxm + reduce."""
+    only; elsewhere it returns None and the caller runs mxm + reduce.
+
+    Spans: ``spgemm.flops`` (phase 0), ``spgemm.fallback`` (rows sent to
+    the classic path by SELL or the fast tier), ``spgemm.sortreduce``
+    (the classic tier's blocks, as the other tiers' expansion and
+    sort-reduce: their module docstrings); counters ``spgemm.sell``,
+    ``spgemm.fast``, ``spgemm.classic`` (the tier that ran),
+    ``spgemm.sell_declined`` and ``spgemm.fallback_rows``.  Every host
+    read and upload is a ``config.blocking_copy``."""
     from . import spgemm_fast as SGF
     from . import spgemm_sell as SGS
     Ar = A.to_format(SPARSE, ROW)
@@ -613,8 +623,9 @@ def _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum,
     if nnzA == 0 or int(Br.indices.shape[0]) == 0:
         return None if reduce_scalar else \
             Matrix((m, n), zt, SPARSE, ROW, device=dev)
-    cumf = _flop_count(Ar.indices, Br.indptr)
-    F = int(cumf[-1])
+    with CFG.timed("spgemm.flops", dev):
+        cumf = _flop_count(Ar.indices, Br.indptr)
+        F = int(CFG.blocking_copy(cumf[-1], "cpu"))
     CFG.burble("spgemm: %d flops (nnzA=%d nnzB=%d)", F, nnzA,
                int(Br.indices.shape[0]))
     if F == 0:
@@ -622,57 +633,92 @@ def _spgemm_esc_impl(A, B, sr, zt, mask, desc, accum,
             Matrix((m, n), zt, SPARSE, ROW, device=dev)
     a_rows = K.expand_rowids(Ar.indptr, nnzA, m).long()
     row_cum = cumf[Ar.indptr.long()]         # products before each row
+    masked = mask is not None and mask.fmt in (SPARSE, HYPER)
 
-    def classic_rows(rows):
+    def classic_rows(rows, count=False):
         """Over-cap rows (ascending host ids) through the classic path,
         in row blocks of at most SPGEMM_FLOP_BLOCK products.  Returns
-        (counts, uvec, uidx, cv)."""
-        rows_d = torch.from_numpy(rows).to(dev)
-        lo = row_cum[rows_d]
-        cnt = row_cum[rows_d + 1] - lo
-        cut = _row_blocks(cnt.cpu().numpy())
-        parts = []
-        for b0, b1 in zip(cut[:-1], cut[1:]):
-            p = spmv_route._repeat_arange(lo[b0:b1], cnt[b0:b1])
-            keys, prod = _spgemm_expand_at(Ar, Br, a_rows, cumf, p, sr,
-                                           zt, n, relabel)
-            parts.append(_spgemm_block(keys, prod, mask, desc, sr, n))
-        uvec, uidx, cv = (torch.cat(q) for q in zip(*parts))
-        counts = torch.zeros(rows.size, dtype=torch.int64, device=dev)
-        counts.index_add_(0, torch.searchsorted(rows_d, uvec.long()),
-                          torch.ones_like(uvec, dtype=torch.int64))
-        return counts, uvec.long(), uidx, cv
+        (counts, uvec, uidx, cv); with ``count`` (a PAIR product's fused
+        reduce, whose outputs are their product counts) the number of
+        products the mask keeps, an int64 device scalar, with no sort."""
+        with CFG.timed("spgemm.fallback", dev):
+            CFG.count("spgemm.fallback_rows", rows.size)
+            rows_d = CFG.blocking_copy(rows, dev)
+            lo = row_cum[rows_d]
+            cnt = row_cum[rows_d + 1] - lo
+            cnt_h = CFG.blocking_copy(cnt, "cpu").numpy()
+            cut = _row_blocks(cnt_h)
+            blocks = [(b0, b1, int(cnt_h[b0:b1].sum()))
+                      for b0, b1 in zip(cut[:-1], cut[1:])]
+            if count:
+                kept = torch.zeros((), dtype=torch.int64, device=dev)
+                bits = mask_lookup(mask, n, ROW, desc) if masked else None
+                for b0, b1, f in blocks:
+                    if bits is None:
+                        kept += f
+                        continue
+                    p = _ranges(lo[b0:b1], cnt[b0:b1], f)
+                    kept += bits(_spgemm_keys_at(Ar, Br, a_rows, cumf, p,
+                                                 n)[0]).sum()
+                return kept
+            parts = []
+            for b0, b1, f in blocks:
+                p = _ranges(lo[b0:b1], cnt[b0:b1], f)
+                keys, prod = _spgemm_expand_at(Ar, Br, a_rows, cumf, p, sr,
+                                               zt, n, relabel)
+                parts.append(_spgemm_block(keys, prod, mask, desc, sr, n))
+            uvec, uidx, cv = (torch.cat(q) for q in zip(*parts))
+            counts = torch.zeros(rows.size, dtype=torch.int64, device=dev)
+            counts.index_add_(0, torch.searchsorted(rows_d, uvec.long()),
+                              torch.ones_like(uvec, dtype=torch.int64))
+            return counts, uvec.long(), uidx, cv
 
     why = SGS.ineligible(sr, zt, n)
     if why is None:
-        ip_h = Ar.indptr.cpu().numpy().astype(np.int64)
+        ip_h = CFG.blocking_copy(Ar.indptr, "cpu").numpy().astype(np.int64)
         T_ = SGS.spgemm_sell(Ar, Br, ip_h, sr, zt, m, n, mask, desc,
                              classic_rows, reduce_scalar=reduce_scalar)
         if T_ is not None:
+            CFG.count("spgemm.sell")
             return T_
+        CFG.count("spgemm.sell_declined")
         CFG.burble("spgemm: SELL declined (slot domain)")
     if reduce_scalar:
         return None          # no fused path; the caller runs mxm + reduce
-    row_cum_h = row_cum.cpu().numpy()
+    row_cum_h = CFG.blocking_copy(row_cum, "cpu").numpy()
     if why is None:
+        CFG.count("spgemm.fast")
         CFG.burble("spgemm: fast sort-reduce tier, %d flops", F)
         return SGF.spgemm_esc_fast(Ar, Br, cumf, ip_h, row_cum_h, sr, zt, m,
                                    n, mask, desc, classic_rows,
                                    SPGEMM_FLOP_BLOCK)
+    CFG.count("spgemm.classic")
     CFG.burble("spgemm: classic ESC (%s)", why)
-    cut = _row_blocks(np.diff(row_cum_h))
-    CFG.burble("spgemm: %d row blocks", len(cut) - 1)
-    parts = []
-    for r0, r1 in zip(cut[:-1], cut[1:]):
-        f0, f1 = int(row_cum_h[r0]), int(row_cum_h[r1])
-        if f1 > f0:
-            keys, prod = _spgemm_expand(Ar, Br, a_rows, cumf, f0, f1 - f0,
-                                        sr, zt, n, relabel)
-            parts.append(_spgemm_block(keys, prod, mask, desc, sr, n))
-    uvec, uidx, cv = (torch.cat(q) for q in zip(*parts))
-    indptr = K.indptr_from_sorted(uvec, m, INDEX)
+    with CFG.timed("spgemm.sortreduce", dev):
+        cut = _row_blocks(np.diff(row_cum_h))
+        CFG.burble("spgemm: %d row blocks", len(cut) - 1)
+        parts = []
+        for r0, r1 in zip(cut[:-1], cut[1:]):
+            f0, f1 = int(row_cum_h[r0]), int(row_cum_h[r1])
+            if f1 > f0:
+                keys, prod = _spgemm_expand(Ar, Br, a_rows, cumf, f0,
+                                            f1 - f0, sr, zt, n, relabel)
+                parts.append(_spgemm_block(keys, prod, mask, desc, sr, n))
+        uvec, uidx, cv = (torch.cat(q) for q in zip(*parts))
+        indptr = K.indptr_from_sorted(uvec, m, INDEX)
     return Matrix((m, n), zt, SPARSE, ROW, indptr=indptr, indices=uidx,
                   values=cv)
+
+
+def _ranges(lo, cnt, total: int):
+    """concat(arange(lo[r], lo[r] + cnt[r]) for each r), ``total`` long:
+    each element finds its range by a binary search over the ranges'
+    ends (torch's repeat_interleave walks a range in one thread, serially
+    through a hub row's millions of products)."""
+    ends = torch.cumsum(cnt, 0)
+    idx = torch.arange(total, dtype=lo.dtype, device=lo.device)
+    r = torch.searchsorted(ends, idx, right=True)
+    return lo[r] + idx - (ends - cnt)[r]
 
 
 def _row_blocks(cnt):
@@ -713,22 +759,28 @@ def _spgemm_expand(Ar, Br, a_rows, cumf, f0: int, F: int, sr, zt, n: int,
     return _spgemm_expand_at(Ar, Br, a_rows, cumf, p, sr, zt, n, relabel)
 
 
-def _spgemm_expand_at(Ar, Br, a_rows, cumf, p, sr, zt, n: int,
-                      relabel=_ident_relabel):
-    """Expansion of global product indices ``p`` (ascending): the A entry
-    e of each product by searchsorted on cumf, its B position, and the
-    int64 key i * n + j with the product value."""
-    mult = sr.mult
+def _spgemm_keys_at(Ar, Br, a_rows, cumf, p, n: int):
+    """(int64 keys i * n + j, A entry e, B position) of global product
+    indices ``p`` (ascending): the A entry of each product by
+    searchsorted on cumf, then its B position."""
     nnzA = Ar.indices.shape[0]
     e = torch.searchsorted(cumf[1:], p, right=True).clamp(max=nnzA - 1)
     off = (p - cumf[e]).clamp(min=0)
     ka = Ar.indices.long()[e]
     b_pos = (Br.indptr.long()[ka] + off).clamp(max=Br.indices.shape[0] - 1)
-    i = a_rows[e]
-    j = Br.indices.long()[b_pos]
-    keys = i * n + j
+    return a_rows[e] * n + Br.indices.long()[b_pos], e, b_pos
+
+
+def _spgemm_expand_at(Ar, Br, a_rows, cumf, p, sr, zt, n: int,
+                      relabel=_ident_relabel):
+    """Expansion of global product indices ``p`` (ascending): the int64
+    key i * n + j of each product (``_spgemm_keys_at``) with the product
+    value."""
+    mult = sr.mult
+    keys, e, b_pos = _spgemm_keys_at(Ar, Br, a_rows, cumf, p, n)
     if mult.positional:
-        ri, rk, rj = relabel(i, ka, j)
+        i, j = keys // n, keys % n
+        ri, rk, rj = relabel(i, Ar.indices.long()[e], j)
         prod = _positional_product_vals(mult.positional, ri, rk, rj, zt)
     else:
         prod = cast(mult.fn(T.take(Ar._vals_expanded(), e),

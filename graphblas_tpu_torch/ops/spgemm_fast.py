@@ -33,6 +33,11 @@ the per-row classes and the block cut).  What exists only for XLA is not
 carried over: the jit cache, the power-of-two padding of the entry
 arrays and of the row counts, and the ``GB_SPGEMM_DEBUG`` stage timer
 (burble reports the blocks and the rows and padded slots per class).
+
+Spans: ``spgemm.sortreduce`` per block (its classes' expansion and
+sort-reduce, as SELL's pass 1), with CUDA events on a card; the
+fallback rows open ops/mxm.py's ``spgemm.fallback``.  Every host read
+and upload is a ``config.blocking_copy`` (counted ``host_syncs``).
 """
 
 from __future__ import annotations
@@ -112,7 +117,7 @@ def spgemm_esc_fast(Ar, Br, cumf, ip_h, row_cum_h, sr, zt, m, n, mask, desc,
             if not bool(keep.all()):
                 mip = SGS._cat0(keep.long())[mip]
                 mi = mi[keep]
-        mip_h = mip.cpu().numpy()
+        mip_h = CFG.blocking_copy(mip, "cpu").numpy()
         BiX = torch.cat([BiX, mi.to(BiX.dtype)])
         if bv is not None:      # token positions read identity values
             bv = torch.cat([bv, bv.new_zeros(BiX.numel() - nnzB)])
@@ -167,7 +172,7 @@ def spgemm_esc_fast(Ar, Br, cumf, ip_h, row_cum_h, sr, zt, m, n, mask, desc,
     cv = torch.cat(cvs)
     cvs.clear()
     return Matrix((m, n), zt, SPARSE, ROW,
-                  indptr=torch.from_numpy(indptr.astype(np.int32)).to(dev),
+                  indptr=CFG.blocking_copy(indptr.astype(np.int32), dev),
                   indices=uidx, values=cv)
 
 
@@ -184,8 +189,8 @@ def _class_runs(ctx, rows, C):
     np.cumsum(deg[:-1], out=cum0[1:])
     cum2 = np.zeros(Rc, np.int64)
     np.cumsum(deg2[:-1], out=cum2[1:])
-    d = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)) \
-        .to(dev)  # noqa: E731
+    d = lambda a: CFG.blocking_copy(  # noqa: E731
+        np.ascontiguousarray(a, np.int64), dev)
     deg_d = d(deg)
     E = int(deg.sum())
     e_idx = _repeat_arange(d(ip_h[rows]), deg_d)
@@ -272,22 +277,23 @@ def _block(ctx, r0, r1):
     cls = ctx["cls"][r0:r1]
     counts = torch.zeros(r1 - r0, dtype=torch.int64, device=dev)
     streams = []
-    for ci, C in enumerate(SRD.CAPS):
-        sel = np.flatnonzero(cls == ci)
-        if sel.size == 0:
-            continue
-        ok, ov = _class_sort(ctx, sel + r0, C)
-        kept = ok.reshape(sel.size, C) != SENT
-        sel_d = torch.from_numpy(sel).to(dev)
-        counts[sel_d] = kept.sum(1)
-        streams.append((ok, ov, kept, sel_d))
+    with CFG.timed("spgemm.sortreduce", dev):
+        for ci, C in enumerate(SRD.CAPS):
+            sel = np.flatnonzero(cls == ci)
+            if sel.size == 0:
+                continue
+            ok, ov = _class_sort(ctx, sel + r0, C)
+            kept = ok.reshape(sel.size, C) != SENT
+            sel_d = CFG.blocking_copy(sel, dev)
+            counts[sel_d] = kept.sum(1)
+            streams.append((ok, ov, kept, sel_d))
     fb = np.flatnonzero(cls == len(SRD.CAPS))
     fbo = None
     if fb.size:
         fbo = ctx["classic_rows"](fb + r0)
-        counts[torch.from_numpy(fb).to(dev)] = fbo[0].to(torch.int64)
+        counts[CFG.blocking_copy(fb, dev)] = fbo[0].to(torch.int64)
     indptr = SGS._cat0(counts)
-    counts_h = counts.cpu().numpy()
+    counts_h = CFG.blocking_copy(counts, "cpu").numpy()
     nnz = int(counts_h.sum())
     uidx = torch.zeros(nnz, dtype=INDEX, device=dev)
     cv = torch.zeros(nnz, dtype=zt.torch_dtype, device=dev)
@@ -302,7 +308,7 @@ def _block(ctx, r0, r1):
         fb_counts, fb_uvec, fb_uidx, fb_cv = fbo
         k_in = torch.arange(fb_uidx.numel(), device=dev)
         cstart = SGS._cat0(fb_counts.long())
-        rowix = torch.searchsorted(torch.from_numpy(fb + r0).to(dev),
+        rowix = torch.searchsorted(CFG.blocking_copy(fb + r0, dev),
                                    fb_uvec.long())
         dest = indptr[fb_uvec.long() - r0] + (k_in - cstart[rowix])
         uidx[dest] = fb_uidx.to(INDEX)

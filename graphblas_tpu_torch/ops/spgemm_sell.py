@@ -29,10 +29,18 @@ tasks, Source/GB_AxB_saxpy3.c:272-420).
     one scatter whose destinations are cumsum arithmetic (``_pass2``).
 
 Rows whose padded slots exceed TILE fall back to the classic ESC path
-(ops/mxm.py), merged by row id into the same output.  Host syncs: one
-packed copy of the per-row metadata (``host_meta``) and the output nnz.
-The JAX package's shape bucketing and its per-phase jits exist for XLA
-compiles and are not carried over.
+(ops/mxm.py), merged by row id into the same output; the fused count of
+a PAIR product counts their kept products block by block instead.  Host
+syncs (``config.blocking_copy``): the prep's packed copy of the per-row
+metadata and its uploads, and per call the output nnz and the uploads
+of the fallback rows and tile bases.  The JAX package's shape bucketing
+and its per-phase jits exist for XLA compiles and are not carried over.
+
+Spans: ``spgemm.sell.prep`` (a prep-cache lookup, and the prep where it
+missed: counter ``spgemm.sell.prep_builds``), ``spgemm.sortreduce``
+(pass 1: expansion and sort-reduce; the fast tier's classes share the
+name) and ``spgemm.sell.place`` (counts, the fallback rows and pass 2),
+each with CUDA events on a card.
 """
 
 from __future__ import annotations
@@ -63,7 +71,9 @@ SENT = SRD.SENTINEL
 # engine, the slot domain counts the fallback rows' padded slots too:
 # SELL holds all of their classic outputs at once (RMAT-18's A*A: 2.9e9
 # products in fallback rows, beyond the card's memory), while the fast
-# tier cuts its fallback rows into blocks.
+# tier cuts its fallback rows into blocks.  The fused count of a PAIR
+# product holds no output of its fallback rows (it counts them block by
+# block), so there their slots do not count.
 MAX_TABLE_SEGS = 1 << 27
 MAX_SLOTS = 1 << 31
 MAX_SEGS = 1 << 30
@@ -87,6 +97,14 @@ def _kdt_for(zt):
 
 
 NARROW = (np.dtype(np.int8), np.dtype(np.uint8), np.dtype(np.int16))
+
+
+def _exact_below(dt) -> int:
+    """The largest count the numpy dtype ``dt`` holds exactly, and every
+    count below it (0 for bool)."""
+    if dt.kind == "f":
+        return 1 << (np.finfo(dt).nmant + 1)
+    return int(np.iinfo(dt).max) if dt.kind in "iu" else 0
 
 
 def _as_products(x, zt, kdt):
@@ -184,12 +202,14 @@ def _prep_operands(Ar, Br, mask, desc, mode, zt, kdt, m, n):
 
 def _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt):
     """Everything before pass 1; pure in (A, B, mask, semiring mode), so
-    cached while the operands live (utils/tensor_cache.py).  None when the
-    slot domain exceeds int32."""
+    cached while the operands live (utils/tensor_cache.py).  False (cached
+    too: a declined product's fused count and its mxm, and every later
+    call, would work it out again) when the slot domain exceeds int32."""
     ts, flags = _prep_operands(Ar, Br, mask, desc, mode, zt, kdt, m, n)
     pv = _prep_cache.get(ts, flags)
     if pv is not None:
         return pv
+    CFG.count("spgemm.sell.prep_builds")
     dev = Ar.device
     # ---- phase A: segment bases, per-row loads, mask degrees ------------
     bip = Br.indptr.long()
@@ -215,13 +235,13 @@ def _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt):
         else:
             mdeg = torch.diff(mip)
         meta.append(mdeg)
-    meta = torch.cat(meta).cpu().numpy()             # ONE packed D2H
+    meta = CFG.blocking_copy(torch.cat(meta), "cpu").numpy()  # ONE D2H
     nsegB_tot = int(meta[0])
     row_nseg_h = meta[1:1 + m]
     if nsegB_tot >= MAX_TABLE_SEGS:
         CFG.burble("spgemm-sell: B table too large (%d segments)",
                    nsegB_tot)
-        return None
+        return _prep_cache.put(ts, flags, False)
     nsegM_tot = 0
     if masked:
         msegs_h = (meta[1 + m:1 + 2 * m] + (SEGW - 1)) // SEGW
@@ -249,7 +269,7 @@ def _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt):
             within = mkcum[1:] - 1 - mkcum[mip[mrows]]
         else:
             within = torch.arange(nnzM, device=dev) - mip[mrows]
-        msegbase = torch.from_numpy(msegbase_h).to(dev)
+        msegbase = CFG.blocking_copy(msegbase_h, dev)
         destM = (nsegB_tot + msegbase[mrows]) * SEGW + within
         mix = Mr.indices.to(torch.int32)
         if valued:
@@ -278,16 +298,16 @@ def _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt):
     starts_h, rank_h, br0, be0, bt0, bs0 = NAT.spgemm_layout(
         row_load_h, np.diff(ip_h), tok_h, TILE // SEGW, S8, E_BLK, R_BLK)
     D_pad = int(starts_h[m]) * SEGW
-    if D_pad + fb_slots >= MAX_SLOTS or nsegB_tot + nsegM_tot >= MAX_SEGS:
-        CFG.burble("spgemm-sell: slot domain beyond int32 (%d slots with "
-                   "the fallback's %d)", D_pad + fb_slots, fb_slots)
-        return None
+    if D_pad >= MAX_SLOTS or nsegB_tot + nsegM_tot >= MAX_SEGS:
+        CFG.burble("spgemm-sell: slot domain beyond int32 (%d slots)",
+                   D_pad)
+        return _prep_cache.put(ts, flags, False)
     # ---- phase C: per-entry run arrays ------------------------------------
     nnzA = int(Ar.indices.shape[0])
     a_rows = K.expand_rowids(Ar.indptr, nnzA, m).long()
-    starts_d = torch.from_numpy(starts_h).to(dev)
+    starts_d = CFG.blocking_copy(starts_h, dev)
     fbm = torch.zeros(m, dtype=torch.bool, device=dev)
-    fbm[torch.from_numpy(fb_rows).to(dev)] = True
+    fbm[CFG.blocking_copy(fb_rows, dev)] = True
     ent = {"rs": starts_d[a_rows] + cumseg[:-1] - row_segbase[:-1][a_rows],
            "sb": segbaseB[aix],
            "ns": torch.where(fbm[a_rows], 0, nseg_e)}
@@ -299,23 +319,25 @@ def _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt):
         trow = np.flatnonzero(tok_h)
         tok = {"rs": starts_h[trow] + row_nseg_h[trow],
                "sb": nsegB_tot + msegbase_h[trow], "ns": msegs_h[trow]}
-        tok = {k: torch.from_numpy(np.ascontiguousarray(v, np.int64))
-               .to(dev) for k, v in tok.items()}
+        tok = {k: CFG.blocking_copy(np.ascontiguousarray(v, np.int64), dev)
+               for k, v in tok.items()}
     else:
         tok = None
     live_h = row_load_h > 0
     pv = {"tblj": tblj, "tblv": tblv, "ent": ent, "tok": tok,
-          "row_start": starts_d[:m], "rank": torch.from_numpy(
-              rank_h.astype(np.int64)).to(dev),
-          "live": torch.from_numpy(live_h).to(dev), "live_h": live_h,
+          "row_start": starts_d[:m],
+          "rank": CFG.blocking_copy(rank_h.astype(np.int64), dev),
+          "live": CFG.blocking_copy(live_h, dev), "live_h": live_h,
           "blocks": list(zip(br0.tolist(), be0.tolist(), bt0.tolist(),
                              bs0.tolist(),
                              np.diff(bs0, append=D_pad // SEGW).tolist())),
           "S8": S8, "E_BLK": E_BLK, "R_BLK": R_BLK, "D_pad": D_pad,
-          "fb_rows": fb_rows, "starts_h": starts_h, "masked": masked,
+          "fb_rows": fb_rows, "fb_slots": fb_slots,
+          "starts_h": starts_h, "masked": masked,
           "nsegB_tot": nsegB_tot, "zt": zt}
-    CFG.burble("spgemm-sell: %d blocks, %d padded slots, %d fallback rows",
-               len(pv["blocks"]), D_pad, fb_rows.size)
+    CFG.burble("spgemm-sell: %d blocks, %d padded slots, %d fallback rows "
+               "(%d padded slots)", len(pv["blocks"]), D_pad, fb_rows.size,
+               fb_slots)
     return _prep_cache.put(ts, flags, pv)
 
 
@@ -526,49 +548,64 @@ def spgemm_sell(Ar, Br, ip_h, sr, zt, m, n, mask, desc, classic_rows,
                 reduce_scalar=False):
     """T = A*B under ``sr`` with the optional in-sort mask filter.
 
-    Ar/Br: CSR matrices; ip_h: host copy of A.indptr; classic_rows(rows)
-    -> (counts, uvec, uidx, cv) for over-cap rows.  ``reduce_scalar``:
-    the fused mxm + reduce under a PLUS monoid (the caller guarantees an
-    exact integer sum) — returns an int64 device scalar instead of a
-    Matrix, never materialising the output planes.  None when the slot
-    domain is beyond int32 (the caller runs the fast tier)."""
+    Ar/Br: CSR matrices; ip_h: host copy of A.indptr; classic_rows(rows,
+    count=False) -> (counts, uvec, uidx, cv) for over-cap rows, or with
+    ``count`` their kept products.  ``reduce_scalar``: the fused mxm +
+    reduce under a PLUS monoid (the caller guarantees an exact integer
+    sum) — returns an int64 device scalar instead of a Matrix, never
+    materialising the output planes.  None when the slot domain is beyond
+    int32 (the caller runs the fast tier)."""
     mode = _mode(sr)
     kdt, logical = _kdt_for(zt)
-    pv = _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt)
-    if pv is None:
+    dev = Ar.device
+    with CFG.timed("spgemm.sell.prep", dev):
+        pv = _prep(Ar, Br, ip_h, sr, zt, m, n, mask, desc, mode, kdt)
+    if not pv:
+        return None
+    # PAIR into a type that holds every count up to A's columns exactly:
+    # an output's value is its product count, so the fallback rows' share
+    # of the sum is their kept products
+    count_fb = reduce_scalar and mode == "pair" and \
+        Ar.ncols <= _exact_below(zt.np_dtype)
+    if not count_fb and pv["D_pad"] + pv["fb_slots"] >= MAX_SLOTS:
+        CFG.burble("spgemm-sell: slot domain beyond int32 (%d slots with "
+                   "the fallback's %d)", pv["D_pad"] + pv["fb_slots"],
+                   pv["fb_slots"])
         return None
     wide = int(n) >= NMAX
     comp = bool(desc.mask_complement) if pv["masked"] else False
     fb_rows = pv["fb_rows"]
-    out = _pass1(pv, sr, mode, kdt, logical, int(n), comp, reduce_scalar,
-                 wide)
+    with CFG.timed("spgemm.sortreduce", dev):
+        out = _pass1(pv, sr, mode, kdt, logical, int(n), comp,
+                     reduce_scalar, wide)
     if reduce_scalar:
         if fb_rows.size:
-            out = out + classic_rows(fb_rows)[3].to(torch.int64).sum()
+            out = out + (classic_rows(fb_rows, count=True) if count_fb else
+                         classic_rows(fb_rows)[3].to(torch.int64).sum())
         return out
     OK, OV = out
-    dev = OK.device
-    tb = torch.from_numpy(pv["starts_h"][:m] * SEGW // TILE * TILE).to(dev)
-    live = pv["live"]
-    jbits, sent = (32, WSENT) if wide else (JB, SENT)
-    counts, p_lo, Sx = _counts(OK, tb, pv["rank"], live, jbits, sent)
-    fb = None
-    if fb_rows.size:
-        fb = classic_rows(fb_rows)
-        counts[torch.from_numpy(fb_rows).to(dev)] = fb[0].to(counts.dtype)
-    indptr = _cat0(counts)
-    nnz = int(indptr[-1])                           # host sync: the nnz
-    uidx, cv = _pass2(OK, OV, p_lo, live, indptr[:-1], Sx, nnz,
-                      LOW32 if wide else (1 << JB) - 1, sent)
-    if fb is not None:
-        fb_counts, fb_uvec, fb_uidx, fb_cv = fb
-        k_in = torch.arange(fb_uidx.numel(), device=dev)
-        cstart = _cat0(fb_counts.long())
-        rowix = torch.searchsorted(torch.from_numpy(fb_rows).to(dev),
-                                   fb_uvec.long())
-        dest = indptr[fb_uvec.long()] + (k_in - cstart[rowix])
-        uidx[dest] = fb_uidx.to(INDEX)
-        cv[dest] = fb_cv.to(cv.dtype)
-    cv = cv != 0 if logical else cast(cv, zt)
+    with CFG.timed("spgemm.sell.place", dev):
+        tb = CFG.blocking_copy(pv["starts_h"][:m] * SEGW // TILE * TILE, dev)
+        live = pv["live"]
+        jbits, sent = (32, WSENT) if wide else (JB, SENT)
+        counts, p_lo, Sx = _counts(OK, tb, pv["rank"], live, jbits, sent)
+        fb = None
+        if fb_rows.size:
+            fb = classic_rows(fb_rows)
+            fb_rows_d = CFG.blocking_copy(fb_rows, dev)
+            counts[fb_rows_d] = fb[0].to(counts.dtype)
+        indptr = _cat0(counts)
+        nnz = int(CFG.blocking_copy(indptr[-1], "cpu"))   # the output nnz
+        uidx, cv = _pass2(OK, OV, p_lo, live, indptr[:-1], Sx, nnz,
+                          LOW32 if wide else (1 << JB) - 1, sent)
+        if fb is not None:
+            fb_counts, fb_uvec, fb_uidx, fb_cv = fb
+            k_in = torch.arange(fb_uidx.numel(), device=dev)
+            cstart = _cat0(fb_counts.long())
+            rowix = torch.searchsorted(fb_rows_d, fb_uvec.long())
+            dest = indptr[fb_uvec.long()] + (k_in - cstart[rowix])
+            uidx[dest] = fb_uidx.to(INDEX)
+            cv[dest] = fb_cv.to(cv.dtype)
+        cv = cv != 0 if logical else cast(cv, zt)
     return Matrix((m, n), zt, SPARSE, ROW, indptr=indptr.to(INDEX),
                   indices=uidx, values=cv)

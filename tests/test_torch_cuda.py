@@ -622,6 +622,29 @@ def test_fast_tier_full_row_ends_in_empty_runs(cuda_device, monkeypatch, C,
     assert abs(got - want).max() <= GT.FP32_TOL * abs(want).max()
 
 
+def test_triangle_count_on_card_matches_reference(cuda_device):
+    """triangle_count on the benchmark's Kronecker graph at scale 16,
+    built as ``gbbench/run.py`` builds it (L relabelled by degree, SELL's
+    fused count, its hub rows on the classic path), equals the plain
+    reference's count, cold and warm, and drives the sort-reduce
+    kernels."""
+    from gbbench import catalog, graph
+    cfg = catalog.load_json(catalog.HERE / "configs" /
+                            "graph500-kron-tc.json")
+    e = graph.generate(cfg, 2**31 + 16, cuda_device, 16)
+    rows, cols, vals = graph.stored(e, cfg)
+    A = gt.Matrix.from_coo(rows, cols, vals, (e.n, e.n),
+                           dup=cfg["duplicates"], orient=gt.ROW)
+    before = sum(SRD.launches.values())
+    got = gt.triangle_count(A)
+    assert gt.triangle_count(A) == got
+    assert sum(SRD.launches.values()) > before
+    ref = catalog.module("reference", "triangles")
+    want = ref.solve(ref.prepare(e, cfg, {}, torch.float64), None, {},
+                     torch.float64)
+    assert got == want > 0
+
+
 def _raw(t):
     """The bytes of a tensor: bitwise comparison whatever its dtype."""
     return t.contiguous().view(torch.uint8)
