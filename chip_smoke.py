@@ -33,13 +33,16 @@ Phases, each printing one line (more for the per-graph phases):
      from the port's copy of its generator), a power-law graph — with
      mxv/vxm (unplanned, planned with mask + accum, min-plus), the fp64
      planned SpMV, CSC conversion, PageRank, BFS and SSSP, each checked
-     against scipy/numpy on the host; then the warm A.to_format(SPARSE,
-     COL) (its row ids and values through one K9 launch): wall, one call
+     against scipy/numpy on the host; then the warm flip of A by column
+     (``convert._sparse_reorient``, which A.to_format(SPARSE, COL) runs
+     where no flip is kept with A; its row ids and values through one K9
+     launch): wall, one call
      traced (idle share, device time by kernel, K9's share), and K9 with
      both payloads against the former two library gathers;
   5. launch counts: every SpMV kernel, K9 and KP launched during phase
      4's checks (K9: the reorients of the CSC conversion, the fused
-     PageRank, BFS and SSSP and vxm; KP: each plan built);
+     PageRank, BFS and SSSP and vxm, once a matrix since its flip is
+     kept; KP: each plan built);
   6. SpMV times: each kernel, its plain version and one torch.sparse CSR
      product (K1, K2, K4) at graphs (a) and (b) (CUDA events, median of
      20 after warm-up) beside the bound of its bytes, and K1's and K2's
@@ -515,8 +518,10 @@ def main_path(label, S, rng):
 
 
 def reorient_times(label, A):
-    """Phase 4: the warm A.to_format(SPARSE, COL) of the main path's
-    matrix: its wall (host clock, median of 5 after 2 warm-up calls, in
+    """Phase 4: the warm flip by column of the main path's matrix
+    (``convert._sparse_reorient``, which A.to_format(SPARSE, COL) runs
+    where it finds no flip kept with A): its wall (host clock, median of
+    5 after 2 warm-up calls, in
     turns with the same steps on two library gathers, vecid[order] and
     types.take(values, order), whose arrays it equals), one call traced
     (device busy and idle share, device time by kernel, K9's share), and
@@ -526,10 +531,11 @@ def reorient_times(label, A):
     from torch.profiler import ProfilerActivity, profile
 
     import graphblas_tpu_torch as gt
+    from graphblas_tpu_torch.core import convert as CV
     from graphblas_tpu_torch.core import types as T
     from graphblas_tpu_torch.kernels import segment as K
     from graphblas_tpu_torch.kernels import static_route as STR
-    conv = lambda: A.to_format(gt.SPARSE, gt.COL)  # noqa: E731
+    conv = lambda: CV._sparse_reorient(A, gt.COL)  # noqa: E731
 
     def before():
         """The reorient as it ran before K9 served it: the same steps with
@@ -567,7 +573,7 @@ def reorient_times(label, A):
     fused = lambda: STR.permute_rows(vecid, order, vals)  # noqa: E731
     lib = lambda: (vecid[order], T.take(vals, order))  # noqa: E731
     tl1, tk1, tk2, tl2 = (time_ms(f) for f in (lib, fused, fused, lib))
-    print(f"[4 reorient {label}] {card_line()} | to_format(SPARSE, COL) of "
+    print(f"[4 reorient {label}] {card_line()} | the flip by column of "
           f"{A.nvals} entries ({A.dtype.name}{' iso' if A.iso else ''}) "
           f"warm wall {wall:.3f} ms (median of 5, two rounds), with the "
           f"two library gathers instead {wall_before:.3f} ms | traced wall "

@@ -3,7 +3,9 @@
 GB_conform.c, rules in GB_matrix.h:394-458).
 
 All conversions are device-side tensor programs on the matrix's device;
-bitmap->sparse needs one host sync of nnz."""
+bitmap->sparse needs one host sync of nnz.  A sparse matrix's flip to the
+other orientation is kept with the matrix's arrays while they live and
+stay unwritten (``_reorients``), as LAGraph keeps a graph's G->AT."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 from . import config as CFG
 from . import errors as E
 from . import types as T
+from ..utils.tensor_cache import TensorCache
 from .matrix import BITMAP, COL, FULL, HYPER, INDEX, SPARSE, Matrix
 
 # every field but the pending queue, of which a copy gets its own list
@@ -47,6 +50,7 @@ def _reclass(a: Matrix, klass) -> Matrix:
 
 def convert(a: Matrix, fmt: str, orient: str) -> Matrix:
     CFG.burble("convert %s/%s -> %s/%s", a.fmt, a.orient, fmt, orient)
+    src = a
     if a.fmt == HYPER:
         a = _hyper_to_sparse(a)
     if a.fmt == fmt and a.orient == orient:
@@ -66,7 +70,9 @@ def convert(a: Matrix, fmt: str, orient: str) -> Matrix:
     if a.fmt in (BITMAP, FULL):
         a = _dense_to_sparse(a, orient)
     elif a.orient != orient:
-        a = _sparse_reorient(a, orient)
+        # a hyper source's sparse arrays are this call's own: none to keep
+        a = _kept_reorient(a, orient) if a is src else \
+            _sparse_reorient(a, orient)
     if fmt == HYPER:
         a = _sparse_to_hyper(a)
     return a
@@ -160,6 +166,33 @@ def _sparse_reorient(a: Matrix, orient: str) -> Matrix:
                                          a.values.contiguous())
     return _clone(a, orient=orient, indptr=indptr, indices=idx.to(INDEX),
                   values=vals)
+
+
+# the flips of live sparse matrices (utils/tensor_cache.py): a flip is
+# pure in its source's arrays, so repeated calls on one graph flip it once
+_reorients = TensorCache(4)
+
+
+def _flip_arrays(a: Matrix) -> list:
+    """The arrays a flip reads or makes: an iso matrix's value is not."""
+    return [a.indptr, a.indices] + ([] if a.iso else [a.values])
+
+
+def _kept_reorient(a: Matrix, orient: str) -> Matrix:
+    """``_sparse_reorient(a, orient)``, kept while a's arrays live and
+    neither they nor the flip's arrays are written in place.  An iso
+    flip shares ``a.values``, so that is neither key nor kept."""
+    keys = _flip_arrays(a)
+    flags = (a.fmt, a.orient, orient, tuple(a.shape), a.dtype.name, a.iso)
+    hit = _reorients.get(keys, flags)
+    if hit is None:
+        out = _sparse_reorient(a, orient)
+        arrays = _flip_arrays(out)
+        _reorients.put(keys, flags, arrays, held=arrays)
+        return out
+    CFG.count("convert.reorient_hits")
+    return _clone(a, orient=orient, indptr=hit[0], indices=hit[1],
+                  values=a.values if a.iso else hit[2])
 
 
 # -- conform (reference: Source/GB_conform.c — applied after every op) ------

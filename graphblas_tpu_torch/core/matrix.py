@@ -218,9 +218,8 @@ class Matrix:
         import scipy.sparse as sps
         a = self.to_format(SPARSE)
         klass = sps.csr_matrix if a.orient == ROW else sps.csc_matrix
-        return klass((T.host(a._vals_expanded()),
-                      a.indices.cpu().numpy(), a.indptr.cpu().numpy()),
-                     shape=self.shape)
+        return klass((T.host(a._vals_expanded()), T.host(a.indices),
+                      T.host(a.indptr)), shape=self.shape)
 
     def dup(self) -> "Matrix":
         """GrB_Matrix_dup.  Tensors are never written in place, so sharing

@@ -164,11 +164,15 @@ def lookup(x) -> Type:
 
 def host(t: torch.Tensor) -> np.ndarray:
     """A tensor's values as a numpy array: BF16 as its float32 carrier,
-    the unsigned types through their signed views."""
+    the unsigned types through their signed views.  Never the tensor's
+    own storage: a write into a host array would pass torch's in-place
+    write counter, which the caches of utils/tensor_cache.py check."""
+    on_host = t.device.type == "cpu"
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.float().numpy()
-    return bits(t).numpy().view(lookup(t.dtype).np_dtype)
+    arr = bits(t).numpy().view(lookup(t.dtype).np_dtype)
+    return arr.copy() if on_host else arr
 
 
 def from_host(arr, ty: Type, device) -> torch.Tensor:

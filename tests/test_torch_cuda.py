@@ -2,7 +2,8 @@
 gather-permute K9 at every payload width) against their plain torch
 versions, the fast SpGEMM tier on K5/K6 against scipy, the union merge,
 wait(), the CSR <-> CSC reorient and the distributed tier (a world-size-1
-NCCL group) against the CPU's results, and the ``host_syncs`` counter
+NCCL group) against the CPU's results, a second sssp that finds its flip
+and plan kept (no sort, no K9, no plan build), and the ``host_syncs`` counter
 against torch's own report of synchronising calls, on a card.
 
 Imports no JAX, so it runs where only torch is installed:
@@ -565,6 +566,55 @@ def test_reorient_on_card_matches_cpu(cuda_device, dtype):
                             getattr(cols["cpu"], name)), name
         assert GT.same_bits(getattr(back, name),
                             getattr(mats["cuda"], name)), name
+
+
+def test_sssp_again_finds_its_flip_and_plan_on_card(cuda_device):
+    """sssp(A, r, optimize=True) twice on an RMAT-18 graph: the second call
+    finds A's flip by column and its plan, so it launches no radix sort
+    and no K9 and builds no plan, and its distances equal the first
+    call's and a fresh matrix's bitwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from graphblas_tpu_torch import algorithms as AL
+    from graphblas_tpu_torch.algorithms import graph as AG
+    from graphblas_tpu_torch.core import convert as CV
+    for cache in (CV._reorients, AG._pattern_plans, AG._sssp_plans):
+        cache.clear()
+    rng = np.random.default_rng(18)
+    r, c, n = GT.rmat_edges(18, 16, rng)
+    w = (rng.random(r.size) + 0.05).astype(np.float32)
+
+    def graph():
+        return gt.Matrix.from_coo(r, c, w, (n, n), dup="min",
+                                  device=cuda_device)
+
+    A, root = graph(), int(r[0])
+    first = AL.sssp(A, root, optimize=True)
+    torch.cuda.synchronize()
+    k9, kp = STR.launches, SPR.launches["spmv_partition"]
+    gt.trace_reset()
+    gt.set_option("trace", True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            again = AL.sssp(A, root, optimize=True)
+            torch.cuda.synchronize()
+        counted = gt.trace_counters()
+    finally:
+        gt.set_option("trace", False)
+        gt.trace_reset()
+    kernels = {e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("spmv_merge" in k for k in kernels), kernels
+    assert not [k for k in kernels if "RadixSort" in k or any(
+        t in k for t in ("pack_kernel", "gather_pairs_kernel",
+                         "permute_gather_kernel"))], kernels
+    assert (STR.launches, SPR.launches["spmv_partition"]) == (k9, kp)
+    assert counted.get("convert.reorient_hits") == 1, counted
+    assert "convert.reorients" not in counted, counted
+    assert "spmv_plan.builds" not in counted, counted
+    fresh = AL.sssp(graph(), root, optimize=True)
+    assert GT.same_bits(again, first) and GT.same_bits(fresh, first)
 
 
 def test_fold_is_bitwise_repeatable(cuda_device):

@@ -1,6 +1,7 @@
 """The port's spans and counters (``core/config.py``: ``timed``, ``count``,
 the ``trace`` option): the spans of the fused algorithms nest under one
-root a call, the plan and host-sync counters count what the loops do,
+root a call, the first call on a graph flips it and builds its plan and
+the next finds both, the plan and host-sync counters count what the loops do,
 nothing is kept with ``trace`` off, the stamps are on torch.profiler's
 clock, and the records are capped.  On the CPU at 2^9 vertices."""
 
@@ -14,7 +15,9 @@ import torch
 import graphblas_tpu_torch as gt
 from graphblas_tpu_torch import algorithms as AL
 from graphblas_tpu_torch import testing as GT
+from graphblas_tpu_torch.algorithms import graph as AG
 from graphblas_tpu_torch.core import config as CFG
+from graphblas_tpu_torch.core import convert as CV
 
 PLAN_PARTS = ("spmv_plan.tile",)
 # the indptr's fetch and sha256: saving and matching plans only
@@ -43,6 +46,14 @@ def tracing():
     finally:
         gt.set_option("trace", False)
         gt.trace_reset()
+
+
+@pytest.fixture(autouse=True)
+def no_kept_flips_or_plans():
+    """Each test starts with no kept flip or plan, so that test order
+    changes no count."""
+    for cache in (CV._reorients, AG._pattern_plans, AG._sssp_plans):
+        cache.clear()
 
 
 @pytest.fixture(scope="module")
@@ -91,16 +102,24 @@ def test_spans_nest_under_one_root_a_call(graph, algo):
             up = ids[r.parent]
             assert up.root == r.root
             assert up.start_ns <= r.start_ns and r.end_ns <= up.end_ns
-    for root in roots:
+    # the first call flips the graph and builds its plan, the second
+    # finds both
+    for root, flips in zip(roots, (1, 0)):
         mine = [r for r in recs if r.root == root.id]
         names = [r.name for r in mine]
-        assert names.count("convert.reorient") == 1
-        assert names.count("spmv_plan.build") == 1
+        assert names.count("convert.reorient") == flips
+        assert names.count("spmv_plan.build") == flips
         for part in PLAN_PARTS:
-            (rec,) = [r for r in mine if r.name == part]
-            assert ids[rec.parent].name == "spmv_plan.build"
-            assert ROOTS[algo] in ancestors(rec, ids)
+            parts = [r for r in mine if r.name == part]
+            assert len(parts) == flips
+            for rec in parts:
+                assert ids[rec.parent].name == "spmv_plan.build"
+                assert ROOTS[algo] in ancestors(rec, ids)
         assert not set(NOT_IN_A_BUILD) & set(names)
+    c = gt.trace_counters()
+    assert c["convert.reorients"] == 1
+    assert c["convert.reorient_hits"] == 1
+    assert c["spmv_plan.builds"] == 1
 
 
 @pytest.mark.parametrize("algo", ["sssp", "pagerank"])
@@ -111,7 +130,18 @@ def test_counters_count_plans_reorients_and_host_syncs(graph, algo):
     assert c["spmv_plan.builds"] == 1
     assert c["spmv_plan.lookups"] >= 1
     assert c["convert.reorients"] == 1
+    assert "convert.reorient_hits" not in c
     # each stop test, and nothing of the plan's build
+    assert c["host_syncs"] == checks
+    # the second call on the graph finds its flip and its plan
+    gt.trace_reset()
+    _, checks = call(algo, graph)
+    c = gt.trace_counters()
+    assert checks >= 1
+    assert "spmv_plan.builds" not in c
+    assert c["spmv_plan.lookups"] >= 1
+    assert "convert.reorients" not in c
+    assert c["convert.reorient_hits"] == 1
     assert c["host_syncs"] == checks
 
 
