@@ -7,8 +7,9 @@ positional MIN_FIRSTJ vxm, connected components by FastSV).
 Two tiers per algorithm, as in the JAX package:
   * GrB tier — composed from the public ops (vxm/apply/reduce).
   * fused tier — a loop over the raw CSR arrays.  With a plan (built by
-    ``optimize=True`` or cached) each step is one planned SpMV kernel
-    launch (kernels/spmv_route.py); without one it is plain torch.
+    ``optimize=True``, or kept with A's arrays by the one plan cache,
+    kernels/spmv_route.py ``plan_for``) each step is one planned SpMV
+    kernel launch; without one it is plain torch.
 
 The fused loops test their stopping condition on the host once per step
 (the JAX package compiles them into one while_loop); capturing them in a
@@ -21,7 +22,7 @@ Spans (``config.timed``): a root span per fused entry point
 (``algorithms.sssp``, ``.pagerank_fused``, ``.bfs_levels_fused``,
 ``.connected_components``), one per host-checked batch of a loop
 (``algorithms.sssp.batch``, ``.pagerank.step``, ``.bfs.batch``) and one
-per plan-cache lookup (``algorithms.pattern_plan``, ``.sssp_plan``).
+per plan lookup (``algorithms.pattern_plan``, ``.sssp_plan``).
 """
 
 from __future__ import annotations
@@ -41,33 +42,14 @@ from ..kernels import segment as K
 from ..kernels import spmv_route as SPRT
 from ..utils.tensor_cache import TensorCache
 
-# pattern-SpMV plans per adjacency structure (values replaced by 1.0 so
-# the plus-times kernel computes the pattern semirings exactly: lor-land
-# frontier expansion is sum>0, PageRank contributions are sums of w[i])
-_pattern_plans: dict = {}
-
-
 @CFG.timed("algorithms.pattern_plan")
 def _pattern_route_plan(At: Matrix, build: bool):
-    """Plan for y = A'x on the pattern of A (At = A in CSC = A' in CSR),
-    cached per structure with identity re-checks."""
+    """Plan for y = A'x on the pattern of A (At = A in CSC = A' in CSR):
+    lor-land is sum > 0, PageRank's contributions are sums of w[i]."""
     if not CFG.GLOBAL.kernels_enabled:
         return None
-    CFG.count("spmv_plan.lookups")
-    key = (id(At.indptr), id(At.indices), At.shape)
-    ent = _pattern_plans.get(key)
-    if ent is not None and ent[0] is At.indptr and ent[1] is At.indices:
-        return ent[2]
-    if not build:
-        return None
-    ones = torch.ones(At.indices.shape[0], dtype=torch.float32,
-                      device=At.device)
-    plan = SPRT.build_plan(At.indptr, At.indices, ones,
-                           (At.shape[1], At.shape[0]))
-    if len(_pattern_plans) > 4:
-        _pattern_plans.clear()
-    _pattern_plans[key] = (At.indptr, At.indices, plan)
-    return plan
+    return SPRT.plan_for(At.indptr, At.indices, None,
+                         (At.shape[1], At.shape[0]), build, kind="pattern")
 
 
 # ---------------------------------------------------------------------------
@@ -364,29 +346,13 @@ def triangle_count(A: Matrix) -> int:
 # SSSP (Bellman-Ford)
 # ---------------------------------------------------------------------------
 
-_sssp_plans: dict = {}
-
-
 @CFG.timed("algorithms.sssp_plan")
 def _sssp_route_plan(At: Matrix, build: bool):
-    """Min-plus plan on A' (values kept, unlike the pattern plans), cached
-    per structure identity."""
+    """Min-plus plan on A' over A's weights in fp32."""
     if not CFG.GLOBAL.kernels_enabled:
         return None
-    CFG.count("spmv_plan.lookups")
-    key = (id(At.indptr), id(At.indices), id(At.values), At.shape)
-    ent = _sssp_plans.get(key)
-    if ent is not None and ent[0] is At.indptr and ent[1] is At.indices:
-        return ent[3]
-    if not build:
-        return None
-    vals = T.cast(At._vals_expanded(), T.FP32).contiguous()
-    plan = SPRT.build_plan(At.indptr, At.indices, vals,
-                           (At.shape[1], At.shape[0]))
-    if len(_sssp_plans) > 4:
-        _sssp_plans.clear()
-    _sssp_plans[key] = (At.indptr, At.indices, At.values, plan)
-    return plan
+    return SPRT.plan_for(At.indptr, At.indices, At.values,
+                         (At.shape[1], At.shape[0]), build, kind="fp32")
 
 
 def _routed_sssp(n: int, source: int, plan) -> torch.Tensor:

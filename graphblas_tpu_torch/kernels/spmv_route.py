@@ -31,9 +31,10 @@ plan's build: on a card its tiling is one more kernel of ``csrc/spmv.cu``
 (``spmv_partition``, K2's path search a tile boundary), and the host
 waits for nothing.
 
-Plans are cached per matrix with identity-checked keys, and save/load to
-an ``.npz`` of the port's own format, matched by a digest of the indptr
-that only saving and matching compute.  Plans written by the JAX package
+Plans are kept with the arrays they read (``plan_for``, one cache for
+the op layer and the algorithms), and save/load to an ``.npz`` of the
+port's own format, matched by a digest of the indptr that only saving
+and matching compute.  Plans written by the JAX package
 (a TPU route layout) and by earlier versions of the port are refused.
 """
 
@@ -49,6 +50,8 @@ import torch
 
 from ..core import config as CFG
 from ..core import errors as E
+from ..core import types as T
+from ..utils.tensor_cache import TensorCache
 from . import _cuda
 from .spmv_onehot import ACC
 
@@ -160,7 +163,7 @@ def build_plan(indptr, indices, values, shape) -> SpmvRoutePlan:
     next sync as torch's own do.  Elsewhere it is
     ``_tile_rows`` over indptr's numpy view.  No digest is taken
     (``indptr_digest``).  Span ``spmv_plan.build`` around ``.tile``;
-    counters ``spmv_plan.builds`` and ``.card_tilings``."""
+    counter ``spmv_plan.builds``."""
     CFG.count("spmv_plan.builds")
     m, n = int(shape[0]), int(shape[1])
     if isinstance(indptr, torch.Tensor) and indptr.is_cuda:
@@ -172,7 +175,6 @@ def build_plan(indptr, indices, values, shape) -> SpmvRoutePlan:
         with CFG.timed("spmv_plan.tile", dev):
             _cuda.spmv_partition(indptr, tile_row, nnz)
         launches["spmv_partition"] += 1
-        CFG.count("spmv_plan.card_tilings")
     else:
         ip = indptr.detach().numpy() if isinstance(indptr, torch.Tensor) \
             else np.asarray(indptr)
@@ -190,39 +192,68 @@ def build_plan(indptr, indices, values, shape) -> SpmvRoutePlan:
 # plan cache + serialization
 # ---------------------------------------------------------------------------
 
-_plan_cache: dict = {}
+# the plans of live matrices (utils/tensor_cache.py): an entry holds the
+# tiling, its arrays unset, and the values the plan made, if any
+_plans = TensorCache(16)
 
 
-def plan_for(indptr, indices, values, shape, build=True):
-    """Per-matrix cached plan.  Strong refs pin the source tensors and
-    identity is re-checked on a hit.  With ``build=False`` only returns an
-    already-cached plan (callers opt in through Matrix.optimize() or the
-    algorithms' ``optimize=True``).  A build reuses the tiling of a plan
-    cached for the same indptr and indices under other values (the fp64
-    copy of an fp32 matrix's values, say)."""
+def _made_values(kind, indices, values):
+    """The values a plan of ``kind`` runs on: ``values`` ("own"), fp32
+    ones ("pattern": plus-times is then exact for the pattern semirings)
+    or ``values`` in fp32, one value standing for all where it holds one
+    (an iso matrix; "fp32")."""
+    if kind == "own":
+        return values
+    if kind == "pattern":
+        return torch.ones(indices.shape[0], dtype=torch.float32,
+                          device=indices.device)
+    v = T.cast(values, T.FP32)
+    return (v.reshape(()).expand(indices.shape[0]) if v.numel() == 1
+            else v).contiguous()
+
+
+def _keys(indptr, indices, values, kind):
+    return [indptr, indices] + ([] if kind == "pattern" else [values])
+
+
+def plan_for(indptr, indices, values, shape, build=True, kind="own"):
+    """The plan kept for a matrix's arrays (and ``kind``, the values its
+    kernel runs on: ``_made_values``), bound to them: no digest, no host
+    sync.  With ``build=False`` only an already-kept plan (callers opt in
+    through Matrix.optimize() or the algorithms' ``optimize=True``).  A
+    build reuses the tiling kept for the same indptr and indices under
+    other values (the fp64 copy of an fp32 matrix's values, say).  An
+    entry goes with its arrays, and an in-place write to them or to the
+    values it made voids it."""
     CFG.count("spmv_plan.lookups")
-    key = (id(indptr), id(indices), id(values), tuple(shape))
-    ent = _plan_cache.get(key)
-    if ent is not None and ent[0] is indptr and ent[1] is indices \
-            and ent[2] is values:
-        return ent[3]
+    ent = _plans.get(_keys(indptr, indices, values, kind),
+                     (tuple(shape), kind))
+    if ent is not None:
+        tiling, made = ent
+        return dataclasses.replace(tiling, indptr=indptr, indices=indices,
+                                   values=values if made is None else made)
     if not build:
         return None
-    p = next((e[3] for k, e in _plan_cache.items() if e[0] is indptr
-              and e[1] is indices and k[3] == tuple(shape)), None)
-    if p is None:
-        p = build_plan(indptr, indices, values, shape)
-    return register_plan(indptr, indices, values, shape, p)
+    made = _made_values(kind, indices, values)
+    plan = _plans.get([indptr, indices], (tuple(shape),))
+    plan = build_plan(indptr, indices, made, shape) if plan is None else \
+        dataclasses.replace(plan, indptr=indptr, indices=indices, values=made)
+    return register_plan(indptr, indices, values, shape, plan, kind, made)
 
 
-def register_plan(indptr, indices, values, shape, plan):
-    """Associate a (loaded or built) plan with a matrix's arrays."""
-    if plan.values is not values or plan.indices is not indices:
-        plan = plan.bind(indptr, indices, values)
-    key = (id(indptr), id(indices), id(values), tuple(shape))
-    if len(_plan_cache) > 8:
-        _plan_cache.clear()
-    _plan_cache[key] = (indptr, indices, values, plan)
+def register_plan(indptr, indices, values, shape, plan, kind="own",
+                  made=None):
+    """Keep a (loaded or built) plan for a matrix's arrays; returns it
+    bound to them (to ``made``, the values a plan of another ``kind``
+    runs on, where given)."""
+    made = values if made is None else made
+    if plan.values is not made or plan.indices is not indices:
+        plan = plan.bind(indptr, indices, made)
+    tiling = dataclasses.replace(plan, indptr=None, indices=None, values=None)
+    _plans.put([indptr, indices], (tuple(shape),), tiling)
+    own = made is values
+    _plans.put(_keys(indptr, indices, values, kind), (tuple(shape), kind),
+               (tiling, None if own else made), held=() if own else (made,))
     return plan
 
 

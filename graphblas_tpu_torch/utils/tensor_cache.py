@@ -1,7 +1,7 @@
 """A cache of values computed from tensors, valid while those tensors live
 and stay unwritten.
 
-The SpGEMM prep, triangle counting's L, L' and a sparse matrix's flip to
+The SpGEMM prep, triangle counting's L, L', SpMV plans and a matrix's flip to
 the other orientation are pure in their operands' arrays and costly to
 rebuild, so they are kept per operand (the hyper-hash idiom,
 GB_hyper_hash_build.c; LAGraph keeps a graph's transpose, G->AT, the same

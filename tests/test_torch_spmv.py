@@ -357,8 +357,9 @@ def test_built_plan_saves_loads_and_matches(tmp_path):
     assert torch.equal(q.tile_row, p.tile_row)
     assert q.matches(ip.clone(), S.shape) and not q.matches(ip, (1, 1))
     r = SPR.register_plan(ip, ix, v, S.shape, q)
-    assert r.values is v and SPR.plan_for(ip, ix, v, S.shape,
-                                          build=False) is r
+    k = SPR.plan_for(ip, ix, v, S.shape, build=False)
+    assert r.values is v and k.values is v and k.indices is ix
+    assert torch.equal(k.tile_row, r.tile_row)
     assert torch.equal(SPR.spmv_route(x, r), SPR.spmv_route(x, p))
     old = str(tmp_path / "old.npz")
     np.savez(old, format=np.array("graphblas_tpu_torch.spmv_plan.v2"),

@@ -15,9 +15,9 @@ import torch
 import graphblas_tpu_torch as gt
 from graphblas_tpu_torch import algorithms as AL
 from graphblas_tpu_torch import testing as GT
-from graphblas_tpu_torch.algorithms import graph as AG
 from graphblas_tpu_torch.core import config as CFG
 from graphblas_tpu_torch.core import convert as CV
+from graphblas_tpu_torch.kernels import spmv_route as SPRT
 
 PLAN_PARTS = ("spmv_plan.tile",)
 # the indptr's fetch and sha256: saving and matching plans only
@@ -52,7 +52,7 @@ def tracing():
 def no_kept_flips_or_plans():
     """Each test starts with no kept flip or plan, so that test order
     changes no count."""
-    for cache in (CV._reorients, AG._pattern_plans, AG._sssp_plans):
+    for cache in (CV._reorients, SPRT._plans):
         cache.clear()
 
 
