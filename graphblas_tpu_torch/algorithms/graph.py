@@ -20,9 +20,10 @@ scalar to the card and waits).
 
 Spans (``config.timed``): a root span per fused entry point
 (``algorithms.sssp``, ``.pagerank_fused``, ``.bfs_levels_fused``,
-``.connected_components``), one per host-checked batch of a loop
-(``algorithms.sssp.batch``, ``.pagerank.step``, ``.bfs.batch``) and one
-per plan lookup (``algorithms.pattern_plan``, ``.sssp_plan``).
+``.connected_components``) and for ``bfs_parents``, one per host-checked
+batch of a loop (``algorithms.sssp.batch``, ``.pagerank.step``,
+``.bfs.batch``, ``.bfs_parents.level``) and one per plan lookup
+(``algorithms.pattern_plan``, ``.sssp_plan``).
 """
 
 from __future__ import annotations
@@ -151,23 +152,28 @@ def bfs_parents(A: Matrix, source: int) -> Vector:
     reference's GxB_MIN_FIRSTJ_INT64 BFS idiom): each step the frontier's
     unvisited out-neighbours (a complemented structural mask with replace)
     take the least frontier vertex as parent.  Returns an INT64 Vector,
-    parent[source] = source, absent where unreached."""
+    parent[source] = source, absent where unreached.  Each level's
+    ``frontier.nvals`` is one ``host_syncs``."""
     from .. import api
-    n = A.nrows
-    vals = torch.zeros((n, 1), dtype=torch.int64, device=A.device)
-    vals[source, 0] = source
-    present = torch.zeros((n, 1), dtype=torch.bool, device=A.device)
-    present[source, 0] = True
-    parents = Vector.from_dense_masked(vals, present)
-    frontier = Vector.from_dense_masked(vals, present)
-    d = Descriptor(mask_complement=True, mask_structure=True, replace=True)
-    while True:
-        frontier = api.vxm(frontier, A, SR.MIN_FIRSTJ, mask=parents,
-                           desc=d)
-        if frontier.nvals == 0:
-            return parents
-        parents = api.ewise_add(parents, frontier, OPS.SECOND,
-                                out_dtype=T.INT64)
+    n, dev, source = A.nrows, A.device, int(source)
+    with CFG.timed("algorithms.bfs_parents", dev):
+        vals = torch.zeros((n, 1), dtype=torch.int64, device=dev)
+        vals.narrow(0, source, 1).fill_(source)
+        present = torch.zeros((n, 1), dtype=torch.bool, device=dev)
+        present.narrow(0, source, 1).fill_(True)
+        parents = Vector.from_dense_masked(vals, present)
+        frontier = Vector.from_dense_masked(vals, present)
+        d = Descriptor(mask_complement=True, mask_structure=True,
+                       replace=True)
+        while True:
+            with CFG.timed("algorithms.bfs_parents.level", dev):
+                CFG.count("bfs_parents.levels")
+                frontier = api.vxm(frontier, A, SR.MIN_FIRSTJ, mask=parents,
+                                   desc=d)
+                if frontier.nvals == 0:
+                    return parents
+                parents = api.ewise_add(parents, frontier, OPS.SECOND,
+                                        out_dtype=T.INT64)
 
 
 # ---------------------------------------------------------------------------

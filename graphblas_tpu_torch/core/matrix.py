@@ -131,14 +131,15 @@ class Matrix:
     @property
     def nvals(self) -> int:
         """Number of stored entries (GrB_Matrix_nvals); one host sync for
-        the bitmap format."""
+        the bitmap format (a ``host_syncs``)."""
         self.wait()
         if self.fmt in (SPARSE, HYPER):
             return int(self.indices.shape[0])
         if self.fmt == FULL:
             return self.nrows * self.ncols
         if self._nvals_cache is None:
-            self._nvals_cache = int(self.bitmap.sum())
+            self._nvals_cache = int(CFG.blocking_copy(self.bitmap.sum(),
+                                                      "cpu"))
         return self._nvals_cache
 
     # -- construction ------------------------------------------------------

@@ -128,8 +128,10 @@ def _ewise_sparse(A, B, op, mode, zt, alpha, beta):
 
 
 def ewise_add(A: Matrix, B: Matrix, op: BinaryOp, **kw):
-    """GrB_eWiseAdd: set-union apply (reference: Source/GB_add.h)."""
-    return _ewise(A, B, op, "add", **kw)
+    """GrB_eWiseAdd: set-union apply (reference: Source/GB_add.h); span
+    ``ewise.add``."""
+    with CFG.timed("ewise.add", A.device):
+        return _ewise(A, B, op, "add", **kw)
 
 
 def ewise_mult(A: Matrix, B: Matrix, op: BinaryOp, **kw):

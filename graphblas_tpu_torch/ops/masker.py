@@ -81,7 +81,13 @@ def _keys_of(a: Matrix):
 
 def writeback(C: Matrix | None, mask: Matrix | None, accum, Tm: Matrix,
               desc: Descriptor = NULL, out_dtype=None, out_class=None):
-    """Returns the new C (a fresh Matrix; callers transplant in place)."""
+    """Returns the new C (a fresh Matrix; callers transplant in place);
+    span ``masker.writeback``."""
+    with CFG.timed("masker.writeback", Tm.device):
+        return _writeback(C, mask, accum, Tm, desc, out_dtype, out_class)
+
+
+def _writeback(C, mask, accum, Tm, desc, out_dtype, out_class):
     klass = out_class or (type(C) if C is not None else type(Tm))
     dt = T.lookup(out_dtype) if out_dtype is not None else (
         C.dtype if C is not None else Tm.dtype)

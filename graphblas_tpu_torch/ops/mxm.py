@@ -380,10 +380,17 @@ def _reduce_axis1(prod, add, zt):
 # ---------------------------------------------------------------------------
 
 def _spmm(A: Matrix, B: Matrix, sr, zt, relabel=_ident_relabel) -> Matrix:
-    """C(bitmap) = A(sparse) x B(bitmap/full)."""
-    Ar = A.to_format(SPARSE, ROW)
-    m = A.nrows
-    dev = A.device
+    """C(bitmap) = A(sparse) x B(bitmap/full); span ``mxm.spmm``, counter
+    ``mxm.spmm_products`` (A's stored entries x B's columns)."""
+    with CFG.timed("mxm.spmm", A.device):
+        Ar = A.to_format(SPARSE, ROW)
+        CFG.count("mxm.spmm_products", int(Ar.indices.shape[0]) * B.ncols)
+        return _spmm_rows(Ar, B, sr, zt, relabel)
+
+
+def _spmm_rows(Ar: Matrix, B: Matrix, sr, zt, relabel) -> Matrix:
+    m = Ar.nrows
+    dev = Ar.device
     # plus-times fp32 with few dense columns: the SpMV kernels per column
     if (B.ncols <= 8 and B.fmt == FULL and sr.add.op.name == "GrB_PLUS"
             and sr.mult.name == "GrB_TIMES" and not sr.mult.positional
@@ -404,10 +411,10 @@ def _spmm(A: Matrix, B: Matrix, sr, zt, relabel=_ident_relabel) -> Matrix:
             and _route_ops(sr) is not None):
         x = cast(B._vals_expanded(), zt)[:, 0].contiguous()
         y = spmv_kernel(Ar.indptr, Ar.indices, cast(Ar._vals_expanded(), zt),
-                        x, A.nrows, sr)
+                        x, m, sr)
         if y is not None:
             pres1 = (torch.diff(Ar.indptr) > 0)[:, None]
-            return Matrix((A.nrows, 1), zt, BITMAP, ROW, values=y[:, None],
+            return Matrix((m, 1), zt, BITMAP, ROW, values=y[:, None],
                           bitmap=pres1)
     n = B.ncols
     nnz = int(Ar.indices.shape[0])
